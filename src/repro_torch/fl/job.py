@@ -1,0 +1,316 @@
+"""Declarative FL job system: one dict describes the whole federation —
+model, clients, data partitioning, the wire stack of each hop,
+transmission, aggregation — and the runner builds and executes it.
+
+Mirror of ``src/repro/fl/job.py`` for the sequential simulator::
+
+    spec = {"arch": "llama3.2-1b", "smoke": False, "rounds": 1, "clients": 2,
+            "local_steps": 2, "batch": 4, "seq": 32, "partition": "iid",
+            "pipeline": {"task_data_out": ["quantize:blockwise8"],
+                         "task_result_out": ["quantize:blockwise8", "crc32"]},
+            "aggregator": "quantized-fedavg", "server_streaming_agg": True,
+            "transmission": "container", "driver": "loopback", "chunk_mb": 1,
+            "seed": 0}
+    result = run_job(spec)                  # on CUDA
+    result = run_job(spec, device="cpu")    # plain PyTorch versions
+
+Entry points run on ``cuda`` unless the caller passes ``device``; with no
+CUDA device they raise. On CUDA the job turns TF32 off for matmuls and
+cuDNN, so training runs in full fp32 like the reference.
+
+Local training mirrors the reference's ``_train_executor``: round-keyed
+batches from the same numpy generators, AdamW re-initialised every
+round, ``local_steps`` steps of PyTorch autograd. Initial weights come
+from a seeded ``torch.Generator`` with the reference's initialiser
+scales, or from ``weights=`` — e.g. the reference's own weights carried
+across with :func:`repro_torch.utils.trees.from_reference_state` — so both
+packages can start from the same numbers.
+
+Not ported yet (they raise): the async ``runtime`` block (ROADMAP A8),
+the legacy ``quantization`` / ``dp_sigma`` keys (A11), the live-plane
+keys (``quorum``, ``checkpoint``, ``chaos``; A9) and ``kernel_backend``
+(the port dispatches by device).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.pipeline import build_pipeline
+from repro_torch.data import dirichlet_partition, iid_partition
+from repro_torch.fl.aggregator import aggregator_consumes_wire, build_aggregator
+from repro_torch.fl.executor import TrainExecutor
+from repro_torch.fl.simulator import FLSimulator, SimulationConfig
+from repro_torch.models.transformer import DecoderLM
+from repro_torch.obs import Tracer
+from repro_torch.obs import trace as obs_trace
+from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.trees import (
+    check_state,
+    flatten_state_dict,
+    from_reference_state,
+    tree_leaves,
+    unflatten_state_dict,
+)
+
+DEFAULTS: dict[str, Any] = {
+    "smoke": True,
+    "rounds": 5,
+    "local_steps": 4,
+    "batch": 8,
+    "seq": 64,
+    "lr": 3e-3,
+    "clients": 3,
+    "partition": "iid",
+    "alpha": 0.5,
+    "quantization": None,
+    "dp_sigma": 0.0,
+    "pipeline": None,
+    "transmission": "container",
+    "driver": "loopback",
+    "chunk_mb": 1,
+    "server_quantized_aggregation": False,
+    "server_streaming_agg": False,
+    "aggregator": None,
+    "runtime": None,
+    "kernel_backend": None,
+    "trace": None,
+    "quorum": None,
+    "straggler_grace_s": 30.0,
+    "max_reconnects": 5,
+    "checkpoint": None,
+    "chaos": None,
+    "seed": 0,
+}
+
+#: spec keys whose features wait for a later slice, with the queue item
+_NOT_PORTED_KEYS = {
+    "runtime": "the async runtime (ROADMAP A8)",
+    "quantization": "the legacy Filter chains (ROADMAP A11); use \"pipeline\"",
+    "dp_sigma": "the legacy Filter chains (ROADMAP A11)",
+    "quorum": "the live federation plane (ROADMAP A9)",
+    "checkpoint": "the live federation plane (ROADMAP A9)",
+    "chaos": "the live federation plane (ROADMAP A9)",
+    "kernel_backend": "backend selection; the port dispatches by device",
+}
+
+
+def normalize_spec(spec: dict[str, Any]) -> dict[str, Any]:
+    """The canonical spec every constructor here consumes: ``DEFAULTS`` applied;
+    raises ``NotImplementedError`` for keys whose features are not ported."""
+    out = {**DEFAULTS, **spec}
+    for key, what in _NOT_PORTED_KEYS.items():
+        if out.get(key):
+            raise NotImplementedError(f'spec key "{key}" needs {what}, not ported yet')
+    return out
+
+
+_PIPELINE_DIRECTIONS = {
+    "task_data": "task_data",
+    "task_data_out": "task_data",
+    "task_result": "task_result",
+    "task_result_out": "task_result",
+}
+
+
+def aggregator_spec(spec: dict[str, Any]) -> Any:
+    """Resolve the spec's aggregator selection exactly as the reference does."""
+    spec = normalize_spec(spec)
+    agg = spec.get("aggregator")
+    if agg is None:
+        agg = (
+            "quantized-fedavg"
+            if spec.get("server_quantized_aggregation") and spec.get("pipeline")
+            else "fedavg"
+        )
+    return agg
+
+
+def build_pipelines_from_spec(spec: dict[str, Any], device: Any = None) -> dict[str, Any]:
+    """Wire pipelines for a job spec, bound to ``device``. Aggregators
+    that fold wire-form payloads get an uplink left undecoded."""
+    spec = normalize_spec(spec)
+    p = spec.get("pipeline") or {}
+    unknown = set(p) - set(_PIPELINE_DIRECTIONS)
+    if unknown:
+        raise ValueError(
+            f"unknown pipeline directions {sorted(unknown)}; "
+            f"valid: {sorted(_PIPELINE_DIRECTIONS)}"
+        )
+    specs: dict[str, list[Any]] = {"task_data": [], "task_result": []}
+    for key, stages in p.items():
+        specs[_PIPELINE_DIRECTIONS[key]] += list(stages or [])
+    keep_wire = bool(spec.get("server_quantized_aggregation")) or \
+        aggregator_consumes_wire(aggregator_spec(spec))
+    return {
+        "task_data": build_pipeline(specs["task_data"], device=device),
+        "task_result": build_pipeline(specs["task_result"], decode_values=not keep_wire,
+                                      device=device),
+    }
+
+
+def _client_datasets(spec: dict[str, Any], cfg: Any) -> list[Any]:
+    """Deterministic per-client datasets (the reference's numpy generators)."""
+    if spec["partition"] == "dirichlet":
+        return dirichlet_partition(
+            cfg.vocab_size, spec["seq"], spec["clients"],
+            alpha=spec["alpha"], seed=spec["seed"],
+        )
+    return iid_partition(cfg.vocab_size, spec["seq"], spec["clients"], seed=spec["seed"])
+
+
+def _model_config(spec: dict[str, Any]) -> Any:
+    return get_smoke_config(spec["arch"]) if spec["smoke"] else get_config(spec["arch"])
+
+
+def _train_executor(
+    name: str, data: Any, spec: dict[str, Any], model: DecoderLM, device: torch.device,
+    history: Optional[list[float]] = None,
+) -> TrainExecutor:
+    def train_fn(flat_params, rnd):
+        with obs_trace.span("client.train", "fl", client=name, round=rnd):
+            # decoded downlink tensors become this client's parameters and
+            # are updated in place; numpy inputs are copied first
+            flat = {
+                k: (v if isinstance(v, torch.Tensor) else torch.tensor(v))
+                .to(device=device, dtype=torch.float32).requires_grad_(True)
+                for k, v in flat_params.items()
+            }
+            p = unflatten_state_dict(flat)
+            leaves = tree_leaves(p)
+            opt = adamw_init(p)
+            loss = None
+            # round-keyed sampling: the update is a pure function of
+            # (params, rnd), as in the reference
+            for step in range(spec["local_steps"]):
+                batch = {
+                    k: torch.as_tensor(v, device=device).long()
+                    for k, v in data.sample_at(
+                        spec["batch"], rnd * spec["local_steps"] + step
+                    ).items()
+                }
+                loss, _ = model.loss(p, batch)
+                grads = torch.autograd.grad(loss, leaves)
+                _, opt, _ = adamw_update(p, list(grads), opt, spec["lr"])
+                del grads
+            loss_f = float(loss.detach())
+        if history is not None:
+            history.append(loss_f)
+        out = {k: t.detach() for k, t in flatten_state_dict(p).items()}
+        return out, spec["batch"] * spec["local_steps"], {"loss": loss_f}
+
+    return TrainExecutor(name, train_fn)
+
+
+def build_client_executor(
+    spec: dict[str, Any], index: int, history: Optional[list[float]] = None,
+    device: Any = None,
+) -> TrainExecutor:
+    """The executor for client ``index`` exactly as the simulator builds it."""
+    spec = normalize_spec(spec)
+    device = resolve_device(device)
+    cfg = _model_config(spec)
+    datasets = _client_datasets(spec, cfg)
+    if not 0 <= index < len(datasets):
+        raise ValueError(f"client index {index} out of range for {len(datasets)} clients")
+    return _train_executor(f"site-{index}", datasets[index], spec, DecoderLM(cfg),
+                           device, history)
+
+
+def initial_weights(spec: dict[str, Any], device: Any = None) -> dict[str, torch.Tensor]:
+    """Round-0 global weights for a spec (flat state dict on ``device``),
+    from a ``torch.Generator`` seeded with ``spec["seed"]``."""
+    spec = normalize_spec(spec)
+    device = resolve_device(device)
+    model = DecoderLM(_model_config(spec))
+    return flatten_state_dict(model.init(spec["seed"], device))
+
+
+def _disable_tf32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclasses.dataclass
+class Job:
+    """A fully-constructed federation, ready to run (or inspect)."""
+
+    spec: dict[str, Any]
+    sim: FLSimulator
+    init_weights: dict[str, Any]
+    history: list[float]
+
+    def run(self) -> dict[str, Any]:
+        final = self.sim.run(self.init_weights)
+        out = {
+            "final_weights": final,
+            "history": self.history,
+            "messages": self.sim.stats.messages,
+            "wire_bytes": self.sim.stats.bytes_sent,
+            "round_log": self.sim.round_log,
+            "telemetry": self.sim.telemetry(),
+        }
+        if self.sim.tracer is not None and isinstance(self.spec.get("trace"), str):
+            out["trace"] = self.sim.tracer.write(self.spec["trace"])
+        return out
+
+
+def build_job(spec: dict[str, Any], *, device: Any = None,
+              weights: Optional[dict[str, Any]] = None) -> Job:
+    """Construct the federation a spec describes, without running it.
+
+    ``weights`` replaces the seeded init: a flat dict of tensors, or of
+    numpy arrays (the reference's ``initial_weights``), checked against
+    the model's names and shapes. With tracing on (``"trace"`` truthy) on
+    CUDA, spans synchronise the device at their edges so their wall
+    times include the kernels they launched.
+    """
+    spec = normalize_spec(spec)
+    device = resolve_device(device)
+    if device.type == "cuda":
+        _disable_tf32()
+    cfg = _model_config(spec)
+    model = DecoderLM(cfg)
+    datasets = _client_datasets(spec, cfg)
+    history: list[float] = []
+    executors = [
+        _train_executor(f"site-{i}", d, spec, model, device, history)
+        for i, d in enumerate(datasets)
+    ]
+    expect = {name: (shape, cfg.param_dtype)
+              for name, shape in model.param_shapes().items()}
+    if weights is None:
+        init = flatten_state_dict(model.init(spec["seed"], device))
+    elif all(isinstance(v, torch.Tensor) for v in weights.values()):
+        check_state(weights, expect)
+        init = {name: weights[name].to(device) for name in sorted(weights)}
+    else:
+        init = from_reference_state(weights, device, expect)
+    tracer = None
+    if spec.get("trace"):
+        tracer = Tracer(sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    sim = FLSimulator(
+        executors,
+        build_aggregator(aggregator_spec(spec), device=device),
+        SimulationConfig(
+            num_rounds=spec["rounds"],
+            transmission=spec["transmission"],
+            chunk_size=int(spec["chunk_mb"] * (1 << 20)),
+            driver=spec["driver"],
+        ),
+        pipelines=build_pipelines_from_spec(spec, device),
+        server_streaming_agg=bool(spec.get("server_streaming_agg")),
+        trace=tracer,
+        device=device,
+    )
+    return Job(spec, sim, init, history)
+
+
+def run_job(spec: dict[str, Any], *, device: Any = None,
+            weights: Optional[dict[str, Any]] = None) -> dict[str, Any]:
+    return build_job(spec, device=device, weights=weights).run()
+

@@ -1,0 +1,240 @@
+"""In-process FL simulator: wires Controller, Executors, the wire
+pipelines and the streaming transport into one runnable federation.
+
+Mirror of ``src/repro/fl/simulator.py`` for the sequential controller.
+Every message physically crosses the streaming layer (encoded, framed,
+chunked, reassembled), so byte counts and peak transmission memory are
+real. Message transforms are :class:`~repro_torch.core.pipeline.WirePipeline`
+stacks, one per hop direction (``task_data`` server->client,
+``task_result`` client->server); stages execute inside the streaming
+loop. :class:`TrafficStats` counts every byte that crosses a driver —
+frame headers, envelopes and the transmitted header item included.
+
+Waiting for later slices (ROADMAP A5/A8/A11): the async runtime
+(``runtime=``/``policy=``/``network=``), chunk fault injection, the
+legacy Filter configuration, and regular (whole-blob) transmission.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from collections.abc import Callable, Sequence
+from typing import Any, Optional, Union
+
+from repro_torch.core import streaming as sm
+from repro_torch.core.messages import Message
+from repro_torch.core.pipeline import WirePipeline
+from repro_torch.fl.controller import ClientProxy, ScatterAndGather
+from repro_torch.fl.executor import Executor
+from repro_torch.obs import MetricsRegistry, Tracer
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.utils.mem import MemoryMeter
+
+@dataclasses.dataclass
+class SimulationConfig:
+    num_rounds: int = 1
+    transmission: str = "container"     # container | file (both stream items)
+    chunk_size: int = sm.DEFAULT_CHUNK_SIZE
+    driver: str = "loopback"            # any registered driver name
+
+    def __post_init__(self) -> None:
+        if self.transmission == "regular":
+            raise NotImplementedError(
+                "regular (whole-blob) transmission is not ported to repro_torch "
+                "yet (ROADMAP A5); use container"
+            )
+        if self.transmission not in ("container", "file"):
+            raise ValueError(f"unknown transmission {self.transmission!r}")
+
+
+@dataclasses.dataclass
+class TrafficStats:
+    """Wire-level counters: ``bytes_sent`` is true bytes on the wire
+    (frame headers, envelopes, the header item); ``payload_bytes`` is the
+    logical pre-transform tensor-payload size. Thread-safe."""
+
+    messages: int = 0
+    bytes_sent: int = 0
+    payload_bytes: int = 0
+    retransmits: int = 0
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+
+    def add(self, nbytes: int, payload_nbytes: int = 0, retransmits: int = 0) -> None:
+        with self._lock:
+            self.messages += 1
+            self.bytes_sent += int(nbytes)
+            self.payload_bytes += int(payload_nbytes)
+            self.retransmits += int(retransmits)
+
+    def as_dict(self) -> dict[str, int]:
+        """JSON-safe export (the metrics-snapshot schema)."""
+        with self._lock:
+            return {
+                "messages": self.messages,
+                "bytes_sent": self.bytes_sent,
+                "payload_bytes": self.payload_bytes,
+                "retransmits": self.retransmits,
+            }
+
+
+class CountingDriver(sm.Driver):
+    """Transparent driver wrapper totalling encoded frame bytes."""
+
+    def __init__(self, inner: sm.Driver) -> None:
+        self.inner = inner
+        self.bytes_sent = 0
+
+    def connect(self, on_chunk: Callable[[sm.Chunk], None]) -> None:
+        self.inner.connect(on_chunk)
+
+    def send(self, chunk: sm.Chunk) -> None:
+        self.bytes_sent += sm._HDR.size + chunk.nbytes
+        self.inner.send(chunk)
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+class _Wire:
+    """One pipelined, streamed hop: stage-encode -> frames -> reassemble
+    -> stage-decode, all inside the streaming loop. A fresh driver,
+    receiver and decoder per transmit."""
+
+    def __init__(self, cfg: SimulationConfig, stats: TrafficStats) -> None:
+        self.cfg = cfg
+        self.stats = stats
+
+    def transmit(self, message: Message, pipeline: WirePipeline,
+                 sink: Optional[Any] = None) -> tuple[Message, int]:
+        tr = obs_trace.ACTIVE
+        if tr is None:
+            return self._transmit(message, pipeline, sink)
+        h = message.headers
+        with tr.span("wire.transmit", "wire", kind=message.kind.value,
+                     client=str(h.get("client", "")), round=h.get("round"),
+                     streaming_fold=sink is not None) as sp:
+            out, nbytes = self._transmit(message, pipeline, sink)
+            sp.args["wire_bytes"] = nbytes
+            return out, nbytes
+
+    def _transmit(self, message: Message, pipeline: WirePipeline,
+                  sink: Optional[Any] = None) -> tuple[Message, int]:
+        """Send ``message`` through ``pipeline`` over one fresh driver;
+        returns the received message and the true bytes put on the wire.
+        ``sink`` switches the receiving end to streaming aggregation: each
+        decoded item is folded via ``sink.begin``/``sink.accept_item``
+        inside the receive loop, and the returned Message carries headers
+        only."""
+        driver = CountingDriver(sm.make_driver(self.cfg.driver))
+        decoder = pipeline.decoder(sink=sink)
+        recv = sm.ContainerReceiver(consume=decoder.on_item,
+                                    decode_item=decoder.decode_item)
+        msg, ctx = pipeline.begin_encode(message)
+        driver.connect(recv.on_chunk)
+        sm.ContainerStreamer(driver, self.cfg.chunk_size).send_items(
+            pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg)
+        )
+        driver.close()
+        out = decoder.finish(msg.kind, pipeline.unsent_headers(msg))
+        self.stats.add(driver.bytes_sent, message.payload_bytes())
+        return out, driver.bytes_sent
+
+
+class _SimClientProxy(ClientProxy):
+    """Server-side handle for one simulated client; runs the full
+    pipelined round trip (both hop directions) over the wire."""
+
+    def __init__(self, executor: Executor, pipelines: dict[str, WirePipeline],
+                 wire: _Wire) -> None:
+        self.name = executor.name
+        self.executor = executor
+        self.pipelines = pipelines
+        self.wire = wire
+
+    def submit_task(self, task: Message, result_sink: Optional[Any] = None) -> Message:
+        task.headers.setdefault("client", self.name)
+        task, wire_bytes_down = self.wire.transmit(task, self.pipelines["task_data"])
+        result = self.executor.execute(task)
+        # with a result_sink the uplink decode folds each item straight
+        # into the sink (streaming aggregation); the returned message
+        # then carries headers only
+        result, wire_bytes_up = self.wire.transmit(
+            result, self.pipelines["task_result"], sink=result_sink)
+        result.headers["wire_bytes_down"] = wire_bytes_down
+        result.headers["wire_bytes_up"] = wire_bytes_up
+        return result
+
+
+class FLSimulator:
+    def __init__(
+        self,
+        executors: Sequence[Executor],
+        aggregator: Any,
+        config: Optional[SimulationConfig] = None,
+        pipelines: Optional[dict[str, WirePipeline]] = None,
+        server_streaming_agg: bool = False,
+        trace: Union[Tracer, bool, None] = None,
+        device: Any = None,
+    ) -> None:
+        """``pipelines`` maps hop direction -> :class:`WirePipeline`
+        (missing directions get the identity pipeline on ``device``).
+        ``server_streaming_agg=True`` folds Task Result items into the
+        aggregator one at a time as they decode (bitwise-equal to batch
+        aggregation: same order, same arithmetic)."""
+        self.config = config or SimulationConfig()
+        pipelines = dict(pipelines or {})
+        unknown = set(pipelines) - {"task_data", "task_result"}
+        if unknown:
+            raise ValueError(f"unknown pipeline directions {sorted(unknown)}")
+        self.pipelines = {
+            hop: pipelines.get(hop) or WirePipeline([], device=device)
+            for hop in ("task_data", "task_result")
+        }
+        self.stats = TrafficStats()
+        self.meter = MemoryMeter()
+        self.server_streaming_agg = server_streaming_agg
+        self.tracer: Optional[Tracer] = (
+            trace if isinstance(trace, Tracer) else (Tracer() if trace else None)
+        )
+        self.metrics = MetricsRegistry()
+        wire = _Wire(self.config, self.stats)
+        self.proxies = [_SimClientProxy(ex, self.pipelines, wire) for ex in executors]
+        self.controller = ScatterAndGather(
+            self.proxies, aggregator, self.config.num_rounds,
+            streaming=server_streaming_agg,
+        )
+
+    def run(self, initial_weights: dict[str, Any]) -> dict[str, Any]:
+        tracing: Any = contextlib.nullcontext()
+        if self.tracer is not None:
+            tracing = obs_trace.activate(self.tracer)
+        with tracing, self.meter.activate(), obs_metrics.activate(self.metrics):
+            out = self.controller.run(initial_weights)
+        self.metrics.publish("traffic", self.stats.as_dict())
+        self.metrics.publish("memory", self.meter.as_dict())
+        return out
+
+    def telemetry(self) -> dict[str, Any]:
+        """JSON-safe observability summary: wire / memory stats, the
+        metrics snapshot, and a flight-recorder summary when tracing."""
+        out: dict[str, Any] = {
+            "traffic": self.stats.as_dict(),
+            "memory": self.meter.as_dict(),
+            "metrics": self.metrics.snapshot(),
+        }
+        if self.tracer is not None:
+            out["trace"] = {
+                "total_events": self.tracer.total_events,
+                "dropped_events": self.tracer.dropped,
+                "capacity": self.tracer.capacity,
+            }
+        return out
+
+    @property
+    def round_log(self) -> list[dict[str, Any]]:
+        """Per-round wall timing from the sequential controller."""
+        return list(self.controller.round_log)
