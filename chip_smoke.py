@@ -6,14 +6,23 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--out report.json]
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc, holds each one against its plain PyTorch version on the card at
-the main path's shapes (timing both: quantize over one message's fused
-group, dequantize and the fold over the largest item), then drives one
-full-width llama3.2-1b federated round through ``repro_torch.fl.job`` —
-blockwise8 downlink, two clients each taking two AdamW steps, blockwise8
-+ crc32 uplink, streaming int8 fold — and checks that every kernel of that path
-launched, that losses and weights are finite, and that a smoke-width
-federation on the card agrees with the same federation on the CPU.
+with nvcc (one compiler per source, in parallel) and holds each one against
+its plain PyTorch version on the card at the main paths' shapes, timing
+both: quantize over one message's fused group, dequantize and the fold over
+the largest item. Then it drives two full-width llama3.2-1b federated
+rounds through ``repro_torch.fl.job``, each with two clients taking two
+AdamW steps:
+
+1. blockwise8 downlink, blockwise8 + crc32 uplink, streaming int8 fold
+   (``quantized-fedavg``);
+2. nf4 downlink, nf4 + crc32 uplink, dense ``fedavg`` on the server
+   (``examples/jobs/wire_pipeline.json`` at full width, ``zlib`` left out).
+
+For each round it zeroes the launch counters, reads them after, and checks
+that every kernel of that path launched as often as the path implies, that
+losses and weights are finite and that every tensor moved. Last, smoke-width
+federations of both paths on the card agree with the same federations on
+the CPU (``wire_pipeline.json`` as it stands, ``zlib`` and 2 rounds).
 
 Output: the card, build and per-kernel lines, per-phase wall times, then
 the card's name and power limit, one JSON line with every kernel's
@@ -24,6 +33,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -35,7 +45,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: the slice: examples/jobs/live_smoke.json at full width, quantized
+#: the first path: examples/jobs/live_smoke.json at full width, quantized
 #: downlink, int8 fold aggregator
 SPEC = {
     "arch": "llama3.2-1b", "smoke": False, "rounds": 1, "clients": 2,
@@ -45,19 +55,41 @@ SPEC = {
     "aggregator": "quantized-fedavg", "server_streaming_agg": True,
     "transmission": "container", "driver": "loopback", "chunk_mb": 1, "seed": 0,
 }
+#: the second path: examples/jobs/wire_pipeline.json at full width, without
+#: zlib (single-threaded deflate of an 843 MB message is host time) and with
+#: 1 round instead of 2
+SPEC_NF4 = {
+    "arch": "llama3.2-1b", "smoke": False, "rounds": 1, "clients": 2,
+    "local_steps": 2, "batch": 4, "seq": 32, "partition": "iid",
+    "pipeline": {"task_data_out": ["quantize:nf4"],
+                 "task_result_out": ["quantize:nf4", "crc32"]},
+    "aggregator": "fedavg", "server_streaming_agg": False,
+    "transmission": "container", "driver": "loopback", "chunk_mb": 1, "seed": 0,
+}
+WIRE_PIPELINE_JOB = os.path.join(REPO, "examples", "jobs", "wire_pipeline.json")
 N_ITEMS = 12                       # flat state-dict items of llama3.2-1b
 LARGEST_ITEM = (16, 2048, 8192)    # blocks.mlp.w_gate / w_up
 GROUP_BLOCKS = 365_841             # 4096-blocks of one message's fused group
+GROUP_BLOCKS4 = 23_413_792         # 64-blocks of the same group (no padding)
+CHUNK_BLOCKS4 = 1 << 21            # 64-blocks per plain-version comparison
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # fp32 outside the tensor cores
 
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
-REPLACES = {
-    "quantize_blockwise8": "src/repro/kernels/quant_blockwise8.py:45",
-    "dequantize_blockwise8": "src/repro/kernels/quant_blockwise8.py:66",
-    "dequant_accumulate8_into": "src/repro/kernels/fused_dequant_agg.py:85",
+BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
+FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
+#: kernel wrapper -> (CUDA source, the TPU kernel's pl.pallas_call it
+#: replaces, the main path whose launches it reports)
+KERNELS = {
+    "quantize_blockwise8": (BW8_SOURCE, "src/repro/kernels/quant_blockwise8.py:45",
+                            "blockwise8"),
+    "dequantize_blockwise8": (BW8_SOURCE, "src/repro/kernels/quant_blockwise8.py:66",
+                              "blockwise8"),
+    "dequant_accumulate8_into": (BW8_SOURCE, "src/repro/kernels/fused_dequant_agg.py:85",
+                                 "blockwise8"),
+    "quantize_4bit": (FB4_SOURCE, "src/repro/kernels/quant_nf4.py:86", "nf4"),
+    "dequantize_4bit": (FB4_SOURCE, "src/repro/kernels/quant_nf4.py:112", "nf4"),
 }
 
 
@@ -73,8 +105,12 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after warm-up."""
+def time_ms(torch, fn, reps: int = 20, warmup: int = 3, batch: int = 10) -> float:
+    """Median over ``reps`` CUDA-event timings of ``batch`` back-to-back
+    calls of ``fn()``, per call, after warm-up. The batch keeps the
+    device busy while the host prepares the next launch, so a wrapper's
+    Python overhead (tens of microseconds) is not counted as device time
+    unless it is longer than the kernel."""
     for _ in range(warmup):
         fn()
     times = []
@@ -82,10 +118,11 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return float(np.median(times))
 
 
@@ -100,15 +137,48 @@ def bits(torch, t):
     return t.contiguous().view(torch.int32)
 
 
+def release(torch) -> None:
+    """Free what the last phase left: collect reference cycles (a model's
+    init can leave device tensors in one) and return cached blocks, so
+    the next phase's allocation and peak start from what it holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def time_rows(torch, rows: dict, err: dict, timed: dict, n: int) -> None:
+    """Time each kernel, its plain version and its library yardstick (if
+    any) and record them with the bound of the bytes and operations given."""
+    for name, (kern, plain, lib, nbytes, nops) in timed.items():
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, reps=10, warmup=1, batch=1)
+        lib_ms = time_ms(torch, lib) if lib is not None else None
+        bound_ms, bound_by = bound(nbytes, nops)
+        rows[name] = {"elements": n, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_abs_err": err[name]}
+        print(f"{name}: {ms:.4f} ms at {n} elements ({nbytes / ms / 1e6:.1f} GB/s), "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it), "
+              f"plain {plain_ms:.4f} ms, library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+
+
+def largest_item(torch, dev):
+    """Weight-like values of the slice's largest item, from a seed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n = math.prod(LARGEST_ITEM)
+    return torch.randn(n, generator=gen, device=dev) * 0.02, gen
+
+
 def check_kernels(torch, dev) -> dict[str, dict]:
-    """Every kernel against its plain version on the card, each at the
-    shapes the main path gives it: the edge cases of
+    """Every blockwise8 kernel against its plain version on the card, each
+    at the shapes the main path gives it: the edge cases of
     ``repro_torch.kernels.cases``; the slice's largest item for all three
     (dequantize and the fold run per item); and the whole fused group of
     one message (365,841 blocks of the slice's own initial weights) for
     quantize, which runs once per message over all of it. Quantize is
     timed at the fused group, dequantize and the fold at the largest item."""
-    from repro_torch.core.quantization import pack_blockwise8_group
+    from repro_torch.core.quantization import pack_group
     from repro_torch.fl.job import initial_weights
     from repro_torch.kernels import cases, ops, ref
     from repro_torch.kernels.fused_dequant_agg import dequant_accumulate8_into
@@ -117,7 +187,8 @@ def check_kernels(torch, dev) -> dict[str, dict]:
         quantize_blockwise8,
     )
 
-    err = {name: 0.0 for name in REPLACES}
+    err = {"quantize_blockwise8": 0.0, "dequantize_blockwise8": 0.0,
+           "dequant_accumulate8_into": 0.0}
 
     def compare_quantize(name, x2d):
         q, am = quantize_blockwise8(x2d)
@@ -146,37 +217,23 @@ def check_kernels(torch, dev) -> dict[str, dict]:
 
     for name, x in cases.blockwise8_cases().items():
         x2d = ops.pad_to_blocks(torch.from_numpy(x).to(dev))
+        accumulator = (cases.subnormal_accumulator if name == "subnormal"
+                       else cases.fold_accumulator)
         for w in cases.FOLD_WEIGHTS:
-            acc0 = torch.from_numpy(cases.fold_accumulator(x2d.shape[0])).to(dev)
+            acc0 = torch.from_numpy(accumulator(x2d.shape[0])).to(dev)
             compare(name, x2d, acc0, w)
-    print(f"kernels agree with their plain versions on {len(cases.blockwise8_cases())} "
-          "edge cases (quantize, dequantize bitwise; fold within 1 ulp of |acc|)")
+    print(f"blockwise8 kernels agree with their plain versions on "
+          f"{len(cases.blockwise8_cases())} edge cases (quantize, dequantize bitwise; "
+          "fold within 1 ulp of |acc|)")
 
-    rows = {}
-
-    def time_rows(timed, n):
-        for name, (kern, plain, lib, nbytes, nops) in timed.items():
-            ms = time_ms(torch, kern)
-            plain_ms = time_ms(torch, plain, reps=10, warmup=1)
-            lib_ms = time_ms(torch, lib) if lib is not None else None
-            bound_ms, bound_by = bound(nbytes, nops)
-            rows[name] = {"elements": n, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": lib_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "max_abs_err": err[name]}
-            print(f"{name}: {ms:.4f} ms at {n} elements ({nbytes / ms / 1e6:.1f} GB/s), "
-                  f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it), "
-                  f"plain {plain_ms:.4f} ms, library "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-
-    # the slice's largest item, weight-like values
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    n = math.prod(LARGEST_ITEM)
-    x2d = (torch.randn(n, generator=gen, device=dev) * 0.02).reshape(-1, ref.BLOCK8)
+    rows: dict[str, dict] = {}
+    flat, gen = largest_item(torch, dev)
+    n = flat.numel()
+    x2d = flat.reshape(-1, ref.BLOCK8)
     acc0 = torch.randn(x2d.shape, generator=gen, device=dev) * 0.02
     weight = float(SPEC["batch"] * SPEC["local_steps"])
     q, am = compare("blocks.mlp.w_gate", x2d, acc0, weight)
-    del x2d
+    del x2d, flat
     torch.cuda.synchronize()
 
     nb = q.shape[0]
@@ -184,7 +241,7 @@ def check_kernels(torch, dev) -> dict[str, dict]:
     s_fold = am * float(np.float32(ref.INV127) * np.float32(weight))
     acc_k, acc_p, acc_l = acc0.clone(), acc0.clone(), acc0.clone()
     del acc0
-    time_rows({
+    time_rows(torch, rows, err, {
         "dequantize_blockwise8": (
             lambda: dequantize_blockwise8(q, am), lambda: ref.dequantize_blockwise8(q, am),
             lambda: q.float() * scale[:, None],
@@ -196,72 +253,195 @@ def check_kernels(torch, dev) -> dict[str, dict]:
             9 * n + 4 * nb, 3 * n),
     }, n)
     del q, am, scale, s_fold, acc_k, acc_p, acc_l
-    torch.cuda.empty_cache()
+    release(torch)
 
     # one message's fused group, laid out as quantize_batch lays it out
     weights = initial_weights(SPEC, device=dev)
-    x2d, _spans = pack_blockwise8_group(weights, list(weights), dev)
+    x2d, _spans = pack_group(weights, list(weights), dev, ref.BLOCK8)
     del weights
     if x2d.shape[0] != GROUP_BLOCKS:
         fail(f"fused group has {x2d.shape[0]} blocks, expected {GROUP_BLOCKS}")
     q, am = compare_quantize("the fused group", x2d)
     del q, am
-    torch.cuda.empty_cache()
+    release(torch)
     n = x2d.numel()
     print(f"quantize kernel agrees bitwise with its plain version on the fused group "
           f"({GROUP_BLOCKS} blocks, {n} elements)")
-    time_rows({
+    time_rows(torch, rows, err, {
         "quantize_blockwise8": (
             lambda: quantize_blockwise8(x2d), lambda: ref.quantize_blockwise8(x2d), None,
             5 * n + 4 * GROUP_BLOCKS, 6 * n),
     }, n)
     del x2d
-    torch.cuda.empty_cache()
+    release(torch)
     return rows
 
 
-def phase_times(events: list[dict]) -> dict[str, float]:
+def check_fourbit_kernels(torch, dev) -> dict[str, dict]:
+    """Both 4-bit kernels against their plain versions on the card, bitwise
+    (the same uint8 codes, the same int32 views of absmax and of the
+    dequantized values), for nf4 and fp4: on the edge cases of
+    ``kernels.cases.fourbit_cases``, on the slice's largest item, and
+    (quantize) over the whole nf4 fused group of the slice's own initial
+    weights, compared in chunks of blocks because the plain version builds
+    full-size temporaries (blocks are independent, so chunks give the same
+    bits). Quantize is timed at the fused group, dequantize at the largest
+    item — the shapes the main path gives them; both plain versions are
+    timed at the largest item. No single PyTorch call computes either
+    function, so neither has a library time."""
+    from repro_torch.core.quantization import pack_group
+    from repro_torch.fl.job import initial_weights
+    from repro_torch.kernels import cases, ops, ref
+    from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit
+
+    err = {"quantize_4bit": 0.0, "dequantize_4bit": 0.0}
+
+    def compare_quantize(name, fmt, x2d, p, am):
+        p_p, am_p = ref.quantize_4bit(x2d, fmt)
+        err["quantize_4bit"] = max(err["quantize_4bit"],
+                                   float((p.int() - p_p.int()).abs().max()),
+                                   float((am - am_p).abs().max()))
+        if not (torch.equal(p, p_p) and torch.equal(bits(torch, am), bits(torch, am_p))):
+            fail(f"4-bit quantize kernel disagrees with its plain version on {name} ({fmt})")
+
+    def compare(name, fmt, x2d):
+        p, am = quantize_4bit(x2d, fmt)
+        compare_quantize(name, fmt, x2d, p, am)
+        d = dequantize_4bit(p, am, fmt)
+        d_p = ref.dequantize_4bit(p, am, fmt)
+        err["dequantize_4bit"] = max(err["dequantize_4bit"], float((d - d_p).abs().max()))
+        if not torch.equal(bits(torch, d), bits(torch, d_p)):
+            fail(f"4-bit dequantize kernel disagrees with its plain version on {name} ({fmt})")
+        return p, am
+
+    edge = cases.fourbit_cases()
+    for fmt in ("fp4", "nf4"):
+        for name, x in edge.items():
+            compare(name, fmt, ops.pad_to_blocks(torch.from_numpy(x).to(dev), ref.BLOCK4))
+    print(f"4-bit kernels agree bitwise with their plain versions on {len(edge)} edge "
+          "cases, for fp4 and nf4")
+
+    rows: dict[str, dict] = {}
+    flat, _gen = largest_item(torch, dev)
+    n = flat.numel()
+    x2d = flat.reshape(-1, ref.BLOCK4)
+    del flat
+    for fmt in ("fp4", "nf4"):
+        p, am = compare("blocks.mlp.w_gate", fmt, x2d)
+    torch.cuda.synchronize()
+    print(f"4-bit kernels agree bitwise with their plain versions at the largest item "
+          f"({n} elements), for fp4 and nf4")
+    nb = p.shape[0]
+    item_quantize_ms = time_ms(torch, lambda: quantize_4bit(x2d, "nf4"))
+    plain_quantize_ms = time_ms(torch, lambda: ref.quantize_4bit(x2d, "nf4"), reps=10,
+                                warmup=1, batch=1)
+    del x2d
+    release(torch)
+    time_rows(torch, rows, err, {
+        "dequantize_4bit": (
+            lambda: dequantize_4bit(p, am, "nf4"), lambda: ref.dequantize_4bit(p, am, "nf4"),
+            None, n // 2 + 4 * nb + 4 * n, n),
+    }, n)
+    del p, am
+    release(torch)
+
+    weights = initial_weights(SPEC_NF4, device=dev)
+    x2d, _spans = pack_group(weights, list(weights), dev, ref.BLOCK4)
+    del weights
+    if x2d.shape[0] != GROUP_BLOCKS4:
+        fail(f"nf4 fused group has {x2d.shape[0]} blocks, expected {GROUP_BLOCKS4}")
+    p, am = quantize_4bit(x2d, "nf4")
+    for start in range(0, GROUP_BLOCKS4, CHUNK_BLOCKS4):
+        end = min(start + CHUNK_BLOCKS4, GROUP_BLOCKS4)
+        compare_quantize(f"blocks {start}:{end} of the fused group", "nf4",
+                         x2d[start:end], p[start:end], am[start:end])
+    del p, am
+    release(torch)
+    n = x2d.numel()
+    print(f"4-bit quantize kernel agrees bitwise with its plain version on the nf4 fused "
+          f"group ({GROUP_BLOCKS4} blocks, {n} elements, compared in chunks of "
+          f"{CHUNK_BLOCKS4} blocks)")
+    ms = time_ms(torch, lambda: quantize_4bit(x2d, "nf4"))
+    del x2d
+    release(torch)
+    # bytes: fp32 in, packed codes and absmax out; operations: abs, max,
+    # the multiply and 15 compares per element
+    nbytes = 4 * n + n // 2 + 4 * GROUP_BLOCKS4
+    bound_ms, bound_by = bound(nbytes, 18 * n)
+    rows["quantize_4bit"] = {
+        "elements": n, "ms": ms, "plain_ms": plain_quantize_ms,
+        "plain_elements": math.prod(LARGEST_ITEM), "item_ms": item_quantize_ms,
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": err["quantize_4bit"]}
+    print(f"quantize_4bit: {ms:.4f} ms at {n} elements ({nbytes / ms / 1e6:.1f} GB/s), "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% of it); at the "
+          f"largest item {item_quantize_ms:.4f} ms, plain {plain_quantize_ms:.4f} ms; "
+          "library n/a")
+    return rows
+
+
+def phase_times(events: list[dict], fold: bool) -> dict[str, float]:
     """Per-phase wall seconds from the device-synchronised span trace.
-    A transmit span holds the encode and the receiving end's decode or
-    fold of that message, plus the host framing (serialization, crc32,
-    chunking, reassembly); local steps run between the two transmits."""
+    A transmit span holds the encode and the receiving end's decode (or,
+    with ``fold``, the streaming fold) of that message, plus the host
+    framing (serialization, crc32, chunking, reassembly); local steps run
+    between the two transmits. Without the fold, the server's dense
+    accumulate is what a client round trip holds besides its two
+    transmits and its local steps."""
     spans = [e for e in events if e.get("ph") == "X"]
     transmits = [e for e in spans if e["name"] == "wire.transmit"]
 
+    def inside(e, outer):
+        return outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"]
+
     def direction(e):
         for t in transmits:
-            if t["ts"] <= e["ts"] and e["ts"] + e["dur"] <= t["ts"] + t["dur"]:
+            if inside(e, t):
                 return t["args"]["kind"]
         return None
 
     def total(pred):
         return sum(e["dur"] for e in spans if pred(e)) / 1e6
 
-    return {
+    def named(name, kind=None):
+        return lambda e: e["name"] == name and (kind is None or direction(e) == kind)
+
+    phases = {
         "downlink_transmit_s": total(lambda e: e["name"] == "wire.transmit"
                                      and e["args"]["kind"] == "task_data"),
         "uplink_transmit_s": total(lambda e: e["name"] == "wire.transmit"
                                    and e["args"]["kind"] == "task_result"),
-        "downlink_encode_s": total(lambda e: e["name"] == "kernel.quantize_batch"
-                                   and direction(e) == "task_data"),
-        "client_decode_s": total(lambda e: e["name"] == "stage.decode.quantize"),
-        "local_steps_s": total(lambda e: e["name"] == "client.train"),
-        "uplink_encode_s": total(lambda e: e["name"] == "kernel.quantize_batch"
-                                 and direction(e) == "task_result"),
-        "fold_s": total(lambda e: e["name"] == "kernel.dequant_accumulate8"),
-        "finish_s": total(lambda e: e["name"] == "agg.finish"),
+        "downlink_encode_s": total(named("kernel.quantize_batch", "task_data")),
+        "client_decode_s": total(named("stage.decode.quantize", "task_data")),
+        "local_steps_s": total(named("client.train")),
+        "uplink_encode_s": total(named("kernel.quantize_batch", "task_result")),
     }
+    if fold:
+        phases["fold_s"] = total(named("kernel.dequant_accumulate8"))
+    else:
+        phases["server_decode_s"] = total(named("stage.decode.quantize", "task_result"))
+        trips = [e for e in spans if e["name"] == "client.round_trip"]
+        phases["fedavg_accumulate_s"] = sum(
+            t["dur"] - sum(e["dur"] for e in spans
+                           if e["name"] in ("wire.transmit", "client.train") and inside(e, t))
+            for t in trips) / 1e6
+    phases["finish_s"] = total(named("agg.finish"))
+    return phases
 
 
-def run_slice(torch, dev) -> dict:
-    """The main path: one full-width federated round, counters read."""
+def run_path(torch, dev, label: str, spec: dict, want: dict[str, int]) -> dict:
+    """One main path: one full-width federated round with the launch
+    counters zeroed just before it and read just after."""
     from repro_torch.fl.job import build_job
     from repro_torch.kernels import ops
 
+    torch.cuda.synchronize()
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    job = build_job({**SPEC, "trace": True}, device=dev)
+    job = build_job({**spec, "trace": True}, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     result = job.run()
@@ -269,30 +449,29 @@ def run_slice(torch, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
 
-    clients, rounds = SPEC["clients"], SPEC["rounds"]
-    want = {"quantize_blockwise8": 2 * clients * rounds,
-            "dequantize_blockwise8": clients * rounds * N_ITEMS,
-            "dequant_accumulate8_into": clients * rounds * N_ITEMS}
-    print(f"slice launches: {launches} (expected {want})")
+    want = {name: want.get(name, 0) for name in launches}
+    print(f"{label} launches: {launches} (expected {want})")
     if launches != want:
-        fail(f"kernel launches on the main path {launches} != {want}")
+        fail(f"kernel launches on the {label} path {launches} != {want}")
+    clients, rounds = spec["clients"], spec["rounds"]
     losses = result["history"]
     if len(losses) != clients * rounds or not all(math.isfinite(x) for x in losses):
-        fail(f"losses not finite: {losses}")
+        fail(f"{label}: losses not finite: {losses}")
     final, init = result["final_weights"], job.init_weights
     if list(final) != list(init) or len(final) != N_ITEMS:
-        fail("final weights do not have the initial weights' names")
+        fail(f"{label}: final weights do not have the initial weights' names")
     moved = 0
     for name, w in final.items():
         if w.shape != init[name].shape or w.device.type != dev.type:
-            fail(f"{name}: shape {tuple(w.shape)} on {w.device}")
+            fail(f"{label}: {name}: shape {tuple(w.shape)} on {w.device}")
         if not bool(torch.isfinite(w).all()):
-            fail(f"{name}: non-finite final weights")
+            fail(f"{label}: {name}: non-finite final weights")
         moved += int(not torch.equal(w, init[name]))
     if moved != len(final):
-        fail(f"only {moved} of {len(final)} tensors moved from their initial values")
+        fail(f"{label}: only {moved} of {len(final)} tensors moved from their initial values")
     n_params = sum(w.numel() for w in final.values())
-    phases = phase_times(job.sim.tracer.chrome_trace()["traceEvents"])
+    phases = phase_times(job.sim.tracer.chrome_trace()["traceEvents"],
+                         fold=spec["aggregator"] == "quantized-fedavg")
     report = {
         "wall_s": wall, "build_job_s": build_s,
         "round_wall_s": [r["wall_s"] for r in result["round_log"]],
@@ -300,21 +479,42 @@ def run_slice(torch, dev) -> dict:
         "messages": result["messages"], "wire_bytes": result["wire_bytes"],
         "params": n_params,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_before_bytes": allocated_before,
     }
-    print(f"slice: {n_params} params, {result['messages']} messages, "
+    print(f"{label}: {n_params} params, {result['messages']} messages, "
           f"{result['wire_bytes']} wire bytes, losses {losses}, wall {wall:.3f} s "
           f"(build_job {build_s:.3f} s)")
-    print("phases (s): " + ", ".join(f"{k}={v:.4f}" for k, v in phases.items()))
-    print(f"max_memory_allocated: {report['max_memory_allocated_bytes']} bytes")
+    print(f"{label} phases (s): " + ", ".join(f"{k}={v:.4f}" for k, v in phases.items()))
+    print(f"{label} max_memory_allocated: {report['max_memory_allocated_bytes']} bytes "
+          f"({allocated_before} allocated before the round)")
     del job, result, final, init
-    torch.cuda.empty_cache()
+    release(torch)
     return report
 
 
+def fixed_train_fn(init: dict, index: int, scale: float):
+    """A client update that is a seeded function of (client, round) only."""
+    def train_fn(_params, rnd):
+        rng = np.random.default_rng((index, rnd))
+        return ({k: v + rng.standard_normal(v.shape).astype(np.float32) * np.float32(scale)
+                 for k, v in init.items()}, 3 + 5 * index, {})
+    return train_fn
+
+
+def block_step(torch, want, got, block: int, step: float):
+    """Per element: ``step`` times the larger absmax of its ``block``-element
+    block in ``want`` or ``got`` (the flat wire layout)."""
+    flat_w, flat_g = want.reshape(-1).abs(), got.reshape(-1).abs()
+    pad = -flat_w.numel() % block
+    am = torch.maximum(torch.nn.functional.pad(flat_w, (0, pad)),
+                       torch.nn.functional.pad(flat_g, (0, pad)))
+    return am.reshape(-1, block).amax(1).repeat_interleave(block)[:flat_w.numel()] * step
+
+
 def check_against_cpu(torch, dev) -> dict:
-    """Smoke width, card vs CPU from identical weights: fixed updates must
-    give the same bits; a trained round must agree within one
-    quantization step per block plus 1e-5 relative (see
+    """Smoke width, card vs CPU from identical weights, blockwise8 path:
+    fixed updates must give the same bits; a trained round must agree
+    within one quantization step per block plus 1e-5 relative (see
     tests/test_torch_slice.py for why)."""
     from repro_torch.fl.job import build_job, initial_weights, run_job
     from repro_torch.kernels.ref import BLOCK8
@@ -322,18 +522,11 @@ def check_against_cpu(torch, dev) -> dict:
     spec = {**SPEC, "smoke": True, "rounds": 1}
     init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
 
-    def fixed(index):
-        def train_fn(_params, rnd):
-            rng = np.random.default_rng((index, rnd))
-            return ({k: v + rng.standard_normal(v.shape).astype(np.float32) * np.float32(0.05)
-                     for k, v in init.items()}, 3 + 5 * index, {})
-        return train_fn
-
     outs = {}
     for d in ("cpu", dev):
         jb = build_job(spec, device=d, weights=init)
         for i, proxy in enumerate(jb.sim.proxies):
-            proxy.executor.train_fn = fixed(i)
+            proxy.executor.train_fn = fixed_train_fn(init, i, 0.05)
         outs[str(d)] = {k: v.cpu() for k, v in jb.run()["final_weights"].items()}
     for name, want in outs["cpu"].items():
         if not torch.equal(bits(torch, outs[str(dev)][name]), bits(torch, want)):
@@ -344,11 +537,7 @@ def check_against_cpu(torch, dev) -> dict:
     worst = 0.0
     for name, want in cpu["final_weights"].items():
         got = gpu["final_weights"][name].cpu()
-        flat_w, flat_g = want.reshape(-1).abs(), got.reshape(-1).abs()
-        pad = -flat_w.numel() % BLOCK8
-        am = torch.maximum(torch.nn.functional.pad(flat_w, (0, pad)),
-                           torch.nn.functional.pad(flat_g, (0, pad)))
-        step = am.reshape(-1, BLOCK8).amax(1).repeat_interleave(BLOCK8)[:flat_w.numel()] / 127
+        step = block_step(torch, want, got, BLOCK8, 1 / 127)
         err = (got - want).abs().reshape(-1)
         if bool((err > step + 1e-5 * want.abs().reshape(-1)).any()):
             fail(f"trained round on the card is more than one quantization step from "
@@ -357,9 +546,89 @@ def check_against_cpu(torch, dev) -> dict:
     rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["history"], cpu["history"]))
     if rel > 1e-4:
         fail(f"losses on the card differ from the CPU by {rel:.3g} relative")
-    print(f"smoke width, card vs CPU: fixed-update weights bitwise equal; trained round "
-          f"within {worst:.3f} quantization steps, losses within {rel:.3g} relative")
+    print(f"blockwise8, smoke width, card vs CPU: fixed-update weights bitwise equal; "
+          f"trained round within {worst:.3f} quantization steps, losses within "
+          f"{rel:.3g} relative")
     return {"trained_max_steps": worst, "loss_rel": rel}
+
+
+def check_nf4_against_cpu(torch, dev) -> dict:
+    """``examples/jobs/wire_pipeline.json`` as it stands (smoke width, nf4 +
+    zlib down, nf4 + zlib + crc32 up, fedavg, 2 rounds), card vs CPU from
+    identical weights. Fixed updates must give the same bits and the same
+    wire bytes. Trained, each round's global weights must agree within the
+    bound ``tests/test_torch_slice.py`` states against the reference: after
+    round 1 every element within one adjacent-code gap of its block (the
+    codebook's largest gap times the block's absmax) + 1e-5 relative; after
+    the final round every element within one gap + 2 * lr * local_steps
+    (a code flipped in round 1 may flip the sign of a near-zero gradient in
+    round 2, and AdamW's step is ~lr either way) + 1e-5 relative, and at
+    most a 1e-5 share of the elements outside one gap. Losses agree within
+    1e-4 relative."""
+    from repro_torch.fl.job import build_job, initial_weights, normalize_spec
+    from repro_torch.kernels.ref import BLOCK4, NF4_CODE
+
+    with open(WIRE_PIPELINE_JOB) as fh:
+        spec = normalize_spec(json.load(fh))
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+
+    outs, wire = {}, {}
+    for d in ("cpu", dev):
+        jb = build_job(spec, device=d, weights=init)
+        for i, proxy in enumerate(jb.sim.proxies):
+            proxy.executor.train_fn = fixed_train_fn(init, i, 0.05 * (i + 1))
+        out = jb.run()
+        outs[str(d)] = {k: v.cpu() for k, v in out["final_weights"].items()}
+        wire[str(d)] = out["wire_bytes"]
+    if wire[str(dev)] != wire["cpu"]:
+        fail(f"nf4 fixed-update federation: {wire[str(dev)]} wire bytes on the card, "
+             f"{wire['cpu']} on the CPU")
+    for name, want in outs["cpu"].items():
+        if not torch.equal(bits(torch, outs[str(dev)][name]), bits(torch, want)):
+            fail(f"nf4 fixed-update federation differs between card and CPU at {name}")
+
+    gap = float(np.diff(np.sort(NF4_CODE)).max())
+    globals_by_round = {}
+    histories = {}
+    for d in ("cpu", dev):
+        jb = build_job(spec, device=d, weights=init)
+        rounds = globals_by_round[str(d)] = []
+        jb.sim.controller.on_round_end = (
+            lambda rnd, weights, results, _r=rounds: _r.append(
+                {n: v.cpu().clone() for n, v in weights.items()}))
+        histories[str(d)] = jb.run()["history"]
+    sign_flips = 2 * spec["lr"] * spec["local_steps"]
+    worst = []
+    for rnd, (want_r, got_r) in enumerate(zip(globals_by_round["cpu"],
+                                              globals_by_round[str(dev)])):
+        n = outside = 0
+        worst_gaps = 0.0
+        for name, want in want_r.items():
+            got = got_r[name]
+            step = block_step(torch, want, got, BLOCK4, gap)
+            err = (got - want).abs().reshape(-1)
+            rel = 1e-5 * want.abs().reshape(-1)
+            cap = step + rel if rnd == 0 else step + sign_flips + rel
+            if bool((err > cap).any()):
+                fail(f"nf4 trained federation, round {rnd + 1}: the card is outside the "
+                     f"stated bound from the CPU at {name}")
+            n += err.numel()
+            outside += int((err > step + rel).sum())
+            worst_gaps = max(worst_gaps, float((err / step.clamp_min(1e-30)).max()))
+        if outside > 1e-5 * n:
+            fail(f"nf4 trained federation, round {rnd + 1}: {outside} of {n} elements "
+                 "more than one code gap from the CPU")
+        worst.append(worst_gaps)
+    if len(worst) != spec["rounds"]:
+        fail(f"nf4 trained federation ran {len(worst)} rounds, expected {spec['rounds']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(histories[str(dev)], histories["cpu"]))
+    if rel > 1e-4:
+        fail(f"nf4 losses on the card differ from the CPU by {rel:.3g} relative")
+    print(f"nf4 wire_pipeline.json, smoke width, card vs CPU: fixed-update weights "
+          f"bitwise equal, {wire['cpu']} wire bytes on both; trained rounds within "
+          f"{', '.join(f'{w:.3f}' for w in worst)} code gaps, losses within {rel:.3g} "
+          "relative")
+    return {"trained_max_gaps": worst, "loss_rel": rel, "wire_bytes": wire["cpu"]}
 
 
 def main(argv=None) -> int:
@@ -387,29 +656,43 @@ def main(argv=None) -> int:
     lib_path, log = _build.build()
     _build.library()
     build_s = time.perf_counter() - t0
-    print(f"kernel build: {build_s:.2f} s -> {os.path.relpath(lib_path, REPO)}")
+    print(f"kernel build: {build_s:.2f} s ({len(_build.SOURCES)} sources in parallel) -> "
+          f"{os.path.relpath(lib_path, REPO)}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line \
+                or line.startswith("== "):
             print(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda")
     rows = check_kernels(torch, dev)
-    slice_report = run_slice(torch, dev)
+    rows.update(check_fourbit_kernels(torch, dev))
+    clients, rounds = SPEC["clients"], SPEC["rounds"]
+    bw8 = run_path(torch, dev, "blockwise8", SPEC, {
+        "quantize_blockwise8": 2 * clients * rounds,
+        "dequantize_blockwise8": clients * rounds * N_ITEMS,
+        "dequant_accumulate8_into": clients * rounds * N_ITEMS})
+    clients, rounds = SPEC_NF4["clients"], SPEC_NF4["rounds"]
+    nf4 = run_path(torch, dev, "nf4", SPEC_NF4, {
+        # one fused group per downlink and per uplink message; one decode
+        # per item on the client (downlink) and on the server (uplink)
+        "quantize_4bit": 2 * clients * rounds,
+        "dequantize_4bit": 2 * clients * rounds * N_ITEMS})
     parity = check_against_cpu(torch, dev)
+    parity_nf4 = check_nf4_against_cpu(torch, dev)
 
+    paths = {"blockwise8": bw8, "nf4": nf4}
     kernels = [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": slice_report["launches"][name],
-         **rows[name]}
-        for name in REPLACES
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": paths[path]["launches"][name], **rows[name]}
+        for name, (source, replaces, path) in KERNELS.items()
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
-                       "kernels": kernels, "slice": slice_report,
-                       "cpu_parity": parity}, fh, indent=1)
+                       "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
+                       "cpu_parity": parity, "cpu_parity_nf4": parity_nf4}, fh, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

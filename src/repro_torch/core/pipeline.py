@@ -34,11 +34,12 @@ Device: a pipeline is bound to one torch device. Quantize encodes build
 their fused group there (the CUDA kernel on the card, the plain version
 on the CPU) and decodes land there; payload bytes on the wire are numpy.
 
-Ported stages: ``quantize`` (``blockwise8``, ``fp16``, ``fp32``, with
-per-layer rules) and ``crc32``. The reference's other stage names
-(``ef-quantize``, ``adaptive``, ``dp-noise``, ``secure-mask``, ``zlib``,
-``zstd``, ``delta``, ``topk``, ``lora``) raise ``NotImplementedError``
-until ported (ROADMAP A4), as do the legacy Filter adapters.
+Ported stages: ``quantize`` (``blockwise8``, ``nf4``, ``fp4``, ``fp16``,
+``fp32``, with per-layer rules), ``zlib``, ``crc32`` and ``delta``. The
+reference's other stage names (``ef-quantize``, ``adaptive``,
+``dp-noise``, ``secure-mask``, ``zstd``, ``topk``, ``lora``) raise
+``NotImplementedError`` until ported (ROADMAP A4), as do the legacy
+Filter adapters.
 """
 from __future__ import annotations
 
@@ -72,12 +73,14 @@ _U32 = struct.Struct("<I")
 META_ITEM = "__meta__"
 
 #: stage names the reference registers that this package has not ported
-NOT_PORTED_STAGES = ("adaptive", "delta", "dp-noise", "ef-quantize", "lora",
-                     "secure-mask", "topk", "zlib", "zstd")
+NOT_PORTED_STAGES = ("adaptive", "dp-noise", "ef-quantize", "lora",
+                     "secure-mask", "topk", "zstd")
 
 
 class WireIntegrityError(ValueError):
-    """A checksum stage rejected an item (corrupted bytes on the wire)."""
+    """A byte or stream check rejected an item: a checksum mismatch, a
+    compressed stream that does not match its declared length, or a
+    desynchronised delta stream."""
 
 
 class WireContext:
@@ -284,7 +287,7 @@ def _pop_prequant(stage: Stage, name: str, value: Any,
 
 @register_stage("quantize")
 class QuantizeStage(Stage):
-    """Per-item two-way quantization (paper §II-C) — spec ``quantize:blockwise8``.
+    """Per-item two-way quantization (paper §II-C) — spec ``quantize:nf4``.
 
     Encode quantizes each float tensor to ``fmt`` as it enters the
     streamer loop; decode recovers original precision item-by-item, so
@@ -297,10 +300,10 @@ class QuantizeStage(Stage):
     tensor's format, ``fmt`` covers the rest, and a rule format of
     ``None`` keeps the tensor at original precision. Spec forms::
 
-        "quantize:blockwise8"                        # uniform
-        "quantize:norm=fp16,embed=keep,blockwise8"   # rules + default
+        "quantize:nf4"                           # uniform
+        "quantize:norm=fp16,embed=keep,nf4"      # rules + default
         {"stage": "quantize", "rules": [["norm", "fp16"], ["embed", null]],
-         "fmt": "blockwise8"}
+         "fmt": "nf4"}
 
     (string rules: ``pattern=fmt`` entries, ``=keep``/empty fmt keeps
     original precision, a bare trailing token is the default format).
@@ -389,6 +392,57 @@ class QuantizeStage(Stage):
         return value
 
 
+@register_stage("zlib")
+class ZlibStage(Stage):
+    """Byte-level DEFLATE compression of each serialized item — spec
+    ``zlib`` or ``zlib:9``. Composes after quantization (quantized
+    payloads still compress: absmax metadata and repeated codes)."""
+
+    def __init__(self, level: int = 6) -> None:
+        self.level = level
+
+    @classmethod
+    def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> ZlibStage:
+        if arg is not None:
+            kwargs.setdefault("level", int(arg))
+        return cls(**kwargs)
+
+    def encode_item_bytes(
+        self, name: str, blob: bytes, meta: dict[str, Any], ctx: WireContext
+    ) -> bytes:
+        meta["n"] = len(blob)
+        return _zlib.compress(blob, self.level)
+
+    def encode_item_views(
+        self, name: str, views: list, meta: dict[str, Any], ctx: WireContext
+    ) -> list:
+        # stream the deflate over the segments: bitwise-identical output
+        # to one-shot zlib.compress (one zlib stream, one final flush),
+        # without first joining the item
+        meta["n"] = ser.views_nbytes(views)
+        c = _zlib.compressobj(self.level)
+        out = [c.compress(seg) for seg in ser.iter_view_segments(views)]
+        out.append(c.flush())
+        return [b"".join(out)]
+
+    def decode_item_bytes(
+        self, name: str, blob: bytes, meta: Mapping[str, Any], ctx: WireContext
+    ) -> bytes:
+        # the envelope-declared original length bounds decompression, so a
+        # corrupted or hostile stream cannot expand past what it declared
+        n = meta.get("n")
+        if n is None:
+            return _zlib.decompress(blob)
+        d = _zlib.decompressobj()
+        out = d.decompress(blob, int(n))
+        if not d.eof or d.unconsumed_tail or len(out) != int(n):
+            raise WireIntegrityError(
+                f"zlib stream for item {name!r} does not match its declared "
+                f"length {n} (got {len(out)} bytes, eof={d.eof})"
+            )
+        return out
+
+
 @register_stage("crc32")
 class Crc32Stage(Stage):
     """Byte-level integrity check: stamps each item's CRC-32 into the
@@ -422,6 +476,120 @@ class Crc32Stage(Stage):
                 f"received bytes hash to {crc}"
             )
         return blob
+
+
+def _is_plain_float(value: Any) -> bool:
+    if isinstance(value, (QuantizedTensor, SparseTensor)):
+        return False
+    if isinstance(value, torch.Tensor):
+        return value.is_floating_point()
+    return bool(np.issubdtype(np.asarray(value).dtype, np.floating))
+
+
+def _f32(value: Any, device: torch.device) -> torch.Tensor:
+    return as_tensor(value, device).to(torch.float32)
+
+
+def _owned(t: torch.Tensor, source: Any) -> torch.Tensor:
+    """``t``, made from ``source``, copied when it may share memory with
+    it: received wire buffers may be the sender's own tensors (a
+    zero-copy hop), and the port updates parameters in place. A host
+    array moved to the card is already a fresh copy."""
+    if isinstance(source, torch.Tensor) or t.device.type == "cpu":
+        return t.clone()
+    return t
+
+
+@register_stage("delta")
+class DeltaStage(Stage):
+    """Residual (delta) encoding against the previous round's payload,
+    keyed per (client, tensor): transmits ``x_t - x_{t-1}`` so a
+    near-converged federation ships near-zero tensors — stack ``zlib``
+    after it and the wire cost collapses. Both ends are stateful: the
+    encoder keeps the last value it transmitted per key, the decoder the
+    last reconstruction — and when one instance serves both ends (the
+    in-process wire) the two collapse to **one canonical snapshot** per
+    (client, tensor); the envelope's per-item ``vmeta`` records the
+    stream position (``d``) and whether the item is a full snapshot
+    (``full``, the first transmission per key or a shape change), so a
+    desynchronised receiver raises :class:`WireIntegrityError` instead
+    of reconstructing garbage.
+
+    Snapshots are float32 tensors on the pipeline's device. Unlike the
+    reference's immutable arrays, torch tensors can be updated in place
+    (the port's training does so to decoded parameters), so every
+    snapshot is a tensor that no caller holds: a full snapshot is copied
+    on both ends, and the decoder returns its reconstruction and keeps
+    another tensor (the encoder's when they are equal, else a copy).
+
+    Compose with *lossless* downstream stages; after a lossy stage
+    (``quantize``) the decoder's reconstruction drifts over rounds.
+    Stateful: one transfer at a time (the sequential simulator's order).
+    """
+
+    def __init__(self) -> None:
+        self._prev_enc: dict[tuple[str, str], torch.Tensor] = {}
+        self._prev_dec: dict[tuple[str, str], torch.Tensor] = {}
+        self._seq_enc: dict[tuple[str, str], int] = {}
+        self._seq_dec: dict[tuple[str, str], int] = {}
+
+    def encode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if not _is_plain_float(value):
+            return value
+        key = (str(ctx.headers.get("client", "")), name)
+        base = self._prev_enc.get(key)
+        seq = self._seq_enc.get(key, 0)
+        self._seq_enc[key] = seq + 1
+        ctx.vmeta["d"] = seq
+        arr = _f32(value, ctx.device)
+        if base is None or base.shape != arr.shape:
+            ctx.vmeta["full"] = 1
+            arr = _owned(arr, value)
+            self._prev_enc[key] = arr
+            return arr
+        delta = arr - base
+        # track the *decoder's* reconstruction, not the raw stream: both
+        # ends stay bit-identical forever and the per-round float32
+        # rounding error never accumulates across rounds
+        self._prev_enc[key] = base + delta
+        return delta
+
+    def decode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if not _is_plain_float(value):
+            return value
+        key = (str(ctx.headers.get("client", "")), name)
+        seq = self._seq_dec.get(key, 0)
+        pos = ctx.vmeta.get("d")
+        if pos is None or int(pos) != seq:
+            raise WireIntegrityError(
+                f"delta stream for item {name!r} (client {key[0]!r}) is out "
+                f"of sync: wire position {pos}, local position {seq}"
+            )
+        self._seq_dec[key] = seq + 1
+        if ctx.vmeta.get("full"):
+            full = _owned(_f32(value, ctx.device), value)
+        else:
+            base = self._prev_dec.get(key)
+            if base is None:
+                raise WireIntegrityError(
+                    f"delta stream for item {name!r} (client {key[0]!r}) "
+                    "carries a residual but no base reconstruction exists "
+                    "(missing 'full' snapshot)"
+                )
+            full = _f32(value, ctx.device) + base
+        # one canonical snapshot per (client, tensor): when this same
+        # stage instance just encoded this stream position and the stream
+        # below delta was lossless, the encoder's tracked reconstruction
+        # equals ``full`` — adopt it instead of keeping a second tensor.
+        # After a lossy downstream stage the two differ, and the decoder
+        # keeps its own, so a shared instance behaves like split ends.
+        enc = self._prev_enc.get(key)
+        if (enc is not None and self._seq_enc.get(key) == seq + 1
+                and enc.shape == full.shape and torch.equal(enc, full)):
+            self._prev_dec[key] = enc
+        else:
+            self._prev_dec[key] = full.clone()
+        return full
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,11 @@ format         payload     meta                   fp32 size
 =============  ==========  =====================  ====================
 fp16           16-bit      —                      50.00 %
 blockwise8     int8        fp32 absmax / 4096     25.03 %
+fp4 / nf4      4-bit x2/B  fp32 absmax / 64       14.06 %
 =============  ==========  =====================  ====================
 
 ``fp32`` passes through. ``bf16`` needs a numpy bfloat16 on the wire and
-``fp4`` / ``nf4`` need the 4-bit kernels (ROADMAP B4/B5); all three raise
-``NotImplementedError`` here until ported. Compute is delegated to
+raises ``NotImplementedError`` here until ported. Compute is delegated to
 :mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the card,
 their plain versions for tensors on the CPU.
 """
@@ -36,8 +36,8 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.trees import as_tensor, numpy_dtype, torch_dtype
 
 FORMATS = ("fp32", "fp16", "bf16", "blockwise8", "fp4", "nf4")
-PORTED_FORMATS = ("fp32", "fp16", "blockwise8")
-_BLOCK_OF = {"blockwise8": 4096}
+PORTED_FORMATS = ("fp32", "fp16", "blockwise8", "fp4", "nf4")
+_BLOCK_OF = {"blockwise8": 4096, "fp4": 64, "nf4": 64}
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -48,7 +48,7 @@ def check_format(fmt: str) -> None:
         raise ValueError(f"unknown quantization format {fmt!r}; valid: {FORMATS}")
     if fmt not in PORTED_FORMATS:
         raise NotImplementedError(
-            f"format {fmt!r} is not ported to repro_torch yet (ROADMAP A2/B4/B5); "
+            f"format {fmt!r} is not ported to repro_torch yet (ROADMAP A2); "
             f"ported: {PORTED_FORMATS}"
         )
 
@@ -57,8 +57,8 @@ def check_format(fmt: str) -> None:
 class QuantizedTensor:
     """Wire format for one tensor: payload + quantization metadata."""
 
-    payload: Array                     # int8 / fp16 / fp32
-    absmax: Optional[Array]            # per-block absmax (blockwise8)
+    payload: Array                     # int8 / uint8 (packed 4-bit) / fp16 / fp32
+    absmax: Optional[Array]            # per-block absmax (blocked formats)
     fmt: str
     orig_shape: tuple[int, ...]
     orig_dtype: Any                    # numpy dtype, as the wire header names it
@@ -83,6 +83,12 @@ class QuantizedTensor:
         return self.payload_bytes + self.meta_bytes
 
 
+def _quantize_blocked(x: torch.Tensor, fmt: str) -> tuple[torch.Tensor, torch.Tensor]:
+    if fmt == "blockwise8":
+        return ops.quantize_blockwise8(x)
+    return ops.quantize_4bit(x, fmt)
+
+
 def quantize(x: torch.Tensor, fmt: str) -> QuantizedTensor:
     """One tensor -> QuantizedTensor whose payload stays on ``x``'s device."""
     check_format(fmt)
@@ -91,7 +97,7 @@ def quantize(x: torch.Tensor, fmt: str) -> QuantizedTensor:
         return QuantizedTensor(x.to(torch.float32), None, fmt, shape, dtype)
     if fmt == "fp16":
         return QuantizedTensor(x.to(torch.float16), None, fmt, shape, dtype)
-    q, absmax = ops.quantize_blockwise8(x)
+    q, absmax = _quantize_blocked(x, fmt)
     return QuantizedTensor(q, absmax, fmt, shape, dtype)
 
 
@@ -99,12 +105,12 @@ def dequantize(qt: QuantizedTensor, device: Any) -> torch.Tensor:
     """QuantizedTensor -> tensor of its original shape and dtype on ``device``."""
     check_format(qt.fmt)
     dtype = torch_dtype(qt.orig_dtype)
-    if qt.fmt != "blockwise8":
+    if qt.fmt not in _BLOCK_OF:
         return as_tensor(qt.payload, device).to(dtype).reshape(qt.orig_shape)
-    return ops.dequantize_blockwise8(
-        as_tensor(qt.payload, device), as_tensor(qt.absmax, device),
-        qt.orig_shape, dtype,
-    )
+    payload, absmax = as_tensor(qt.payload, device), as_tensor(qt.absmax, device)
+    if qt.fmt == "blockwise8":
+        return ops.dequantize_blockwise8(payload, absmax, qt.orig_shape, dtype)
+    return ops.dequantize_4bit(payload, absmax, qt.fmt, qt.orig_shape, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -121,15 +127,14 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-def pack_blockwise8_group(
-    items: Mapping[str, Any], names: list[str], device: torch.device
+def pack_group(
+    items: Mapping[str, Any], names: list[str], device: torch.device, block: int
 ) -> tuple[torch.Tensor, list[tuple[str, tuple[int, ...], np.dtype, int, int]]]:
     """The fused group's layout: every tensor of ``names`` padded to whole
-    blocks (exactly the per-tensor wire layout) and laid back to back in
-    one ``(nblocks, BLOCK8)`` fp32 buffer **on the device**. Returns the
-    buffer and, per tensor, ``(name, shape, dtype, first block, blocks)``.
-    Block boundaries never span tensors."""
-    block = _BLOCK_OF["blockwise8"]
+    ``block``-element blocks (exactly the per-tensor wire layout) and laid
+    back to back in one ``(nblocks, block)`` fp32 buffer **on the
+    device**. Returns the buffer and, per tensor, ``(name, shape, dtype,
+    first block, blocks)``. Block boundaries never span tensors."""
     spans: list[tuple[str, tuple[int, ...], np.dtype, int, int]] = []
     total = 0
     for name in names:
@@ -148,25 +153,25 @@ def pack_blockwise8_group(
 
 
 def _fused_quantize_group(
-    items: Mapping[str, Any], names: list[str], device: torch.device
+    items: Mapping[str, Any], names: list[str], fmt: str, device: torch.device
 ) -> dict[str, QuantizedTensor]:
-    """One kernel launch for a whole blockwise8 group laid out by
-    :func:`pack_blockwise8_group`; each tensor's payload/absmax are row
-    slices of the single result, bitwise-identical to quantizing each
-    tensor alone.
+    """One kernel launch for a whole format group laid out by
+    :func:`pack_group`; each tensor's payload/absmax are row slices of
+    the single result, bitwise-identical to quantizing each tensor
+    alone.
 
     The codes leave the device in one copy into pinned host memory, at
     the one synchronisation point per group; the payloads are numpy views
     of it (they keep the pinned buffer alive)."""
-    big, spans = pack_blockwise8_group(items, names, device)
-    q, am = ops.quantize_blockwise8(big)
+    big, spans = pack_group(items, names, device, _BLOCK_OF[fmt])
+    q, am = _quantize_blocked(big, fmt)
     del big
     q_np, am_np = _to_host(q), _to_host(am)
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()   # the one sync point
     return {
         name: QuantizedTensor(q_np[start:start + nb], am_np[start:start + nb],
-                              "blockwise8", shape, dtype)
+                              fmt, shape, dtype)
         for name, shape, dtype, start, nb in spans
     }
 
@@ -174,30 +179,29 @@ def _fused_quantize_group(
 def quantize_batch(
     items: Mapping[str, Any], fmt_for: Mapping[str, str], device: Any
 ) -> dict[str, QuantizedTensor]:
-    """Whole-message quantization: one kernel launch per blockwise8
-    group (all such tensors concatenated block-aligned on ``device``),
-    one device-to-host copy and sync per message. ``fmt_for`` maps item
+    """Whole-message quantization: one kernel launch per format group
+    (all same-format tensors concatenated block-aligned on ``device``),
+    one device-to-host copy and sync per group. ``fmt_for`` maps item
     name -> format; items absent from it are skipped. Results are
     bitwise-identical to calling :func:`quantize` per item, with numpy
     payloads (the wire form)."""
     device = torch.device(device)
     out: dict[str, QuantizedTensor] = {}
-    names: list[str] = []
+    groups: dict[str, list[str]] = {}
     for name, value in items.items():
         fmt = fmt_for.get(name)
         if fmt is None:
             continue
         check_format(fmt)
         if fmt in _BLOCK_OF:
-            names.append(name)
+            groups.setdefault(fmt, []).append(name)
         else:  # fp32/fp16 casts: cheap per-tensor work
             qt = quantize(as_tensor(value, device), fmt)
             qt.payload = qt.payload.cpu().numpy()
             out[name] = qt
-    if names:
-        with obs_trace.span("kernel.quantize_batch", "kernel", fmt="blockwise8",
-                            items=len(names)):
-            out.update(_fused_quantize_group(items, names, device))
+    for fmt, names in groups.items():
+        with obs_trace.span("kernel.quantize_batch", "kernel", fmt=fmt, items=len(names)):
+            out.update(_fused_quantize_group(items, names, fmt, device))
     return out
 
 

@@ -1,11 +1,12 @@
 """Build-at-first-use loader for the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` into a shared
-library with a plain C interface and loaded with :mod:`ctypes` — no
-PyTorch headers, so a build takes seconds rather than minutes. The
-library is cached under ``build/repro_torch_kernels/`` at the repository
-root, keyed by a hash of the source and the compiler flags, so editing a
-source rebuilds it.
+Every ``.cu`` source under ``csrc/`` is compiled with ``nvcc`` — one
+compiler process per source, all started together — and the objects are
+linked into one shared library with a plain C interface, loaded with
+:mod:`ctypes`. No PyTorch headers, so a build takes seconds rather than
+minutes. The library is cached under ``build/repro_torch_kernels/`` at
+the repository root, keyed by a hash of every source and header under
+``csrc/`` and the compiler flags, so editing or adding one rebuilds it.
 
 Nothing here runs at import time: the CPU tests import every module, and
 this host may have no ``nvcc`` and no card.
@@ -23,13 +24,16 @@ from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "blockwise8.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = sorted(CSRC.glob("*.cu"))
+HEADERS = sorted(CSRC.glob("*.cuh"))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -38,6 +42,9 @@ _SIGNATURES = {
     "bw8_quantize": [_P, _P, _P, ctypes.c_longlong, _P],
     "bw8_dequantize": [_P, _P, _P, ctypes.c_longlong, _P],
     "bw8_fold": [_P, _P, _P, ctypes.c_float, ctypes.c_longlong, _P],
+    # device x, packed, absmax; count; host code, mids, perm; stream
+    "fb4_quantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
+    "fb4_dequantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -64,27 +71,38 @@ def find_nvcc() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile ``SOURCE`` if its cached library is missing; returns the
+    """Compile ``SOURCES`` if their cached library is missing; returns the
     library path and the compiler's output (``-Xptxas -v`` register and
-    spill report; empty when the cache was hit)."""
+    spill report per kernel; empty when the cache was hit)."""
     nvcc = find_nvcc()
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"lib{SOURCE.stem}-{key.hexdigest()[:16]}.so"
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES + HEADERS:
+        key.update(src.name.encode() + b"\0" + src.read_bytes())
+    lib_path = BUILD_DIR / f"librepro_torch_kernels-{key.hexdigest()[:16]}.so"
     if lib_path.is_file():
         return lib_path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{key.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    for src, proc, log in zip(SOURCES, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{log}")
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed on {SOURCE.name} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, check=False)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link the kernel library (exit "
+                           f"{link.returncode}):\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib_path)
-    return lib_path, proc.stdout + proc.stderr
+    return lib_path, "".join(f"== {src.name}\n{log}" for src, log in zip(SOURCES, logs))
 
 
 def library() -> ctypes.CDLL:

@@ -17,14 +17,18 @@
 //
 // Numerics are pinned to the reference's live arithmetic: correctly rounded
 // division and products (__fdiv_rn / __fmul_rn), rintf (half to even), an
-// explicit fmaf for the fold, and the build uses -fmad=false so nothing else
-// is contracted. Do not build with --use_fast_math.
+// explicit fmaf for the fold, subnormals flushed to zero (common.cuh), and a
+// zero element of a block whose scale overflows (0 * inf = NaN) encoded as 0.
+// The build uses -fmad=false so nothing else is contracted. Do not build with
+// --use_fast_math.
 //
 // Plain C interface (loaded with ctypes): every function takes raw device
 // pointers and a cudaStream_t, launches on that stream, does not
 // synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -34,8 +38,9 @@ constexpr int kVecs = kBlock / (4 * kThreads);  // 4 float4 per thread
 constexpr float kInv127 = 0x1.020408p-7f;       // f32(1/127)
 
 __device__ __forceinline__ signed char code_of(float x, float scale) {
-  return static_cast<signed char>(
-      fminf(fmaxf(rintf(__fmul_rn(x, scale)), -127.f), 127.f));
+  const float r = rintf(__fmul_rn(x, scale));
+  // fmaxf / fminf would turn NaN into -127; the reference encodes it as 0
+  return r != r ? 0 : static_cast<signed char>(fminf(fmaxf(r, -127.f), 127.f));
 }
 
 __device__ __forceinline__ float abs_max4(float4 v) {
@@ -53,7 +58,7 @@ quantize_kernel(const float4* __restrict__ x, char4* __restrict__ q,
   float m = 0.f;
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
-    v[k] = xb[threadIdx.x + k * kThreads];
+    v[k] = ftz4(xb[threadIdx.x + k * kThreads]);
     m = fmaxf(m, abs_max4(v[k]));
   }
 #pragma unroll
@@ -86,15 +91,15 @@ dequantize_kernel(const char4* __restrict__ q, const float* __restrict__ absmax,
   const long long b = blockIdx.x;
   const char4* qb = q + b * (kBlock / 4);
   float4* ob = out + b * (kBlock / 4);
-  const float s = __fmul_rn(absmax[b], kInv127);
+  const float s = ftz(__fmul_rn(ftz(absmax[b]), kInv127));
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
     const char4 c = qb[threadIdx.x + k * kThreads];
     float4 o;
-    o.x = __fmul_rn(static_cast<float>(c.x), s);
-    o.y = __fmul_rn(static_cast<float>(c.y), s);
-    o.z = __fmul_rn(static_cast<float>(c.z), s);
-    o.w = __fmul_rn(static_cast<float>(c.w), s);
+    o.x = ftz(__fmul_rn(static_cast<float>(c.x), s));
+    o.y = ftz(__fmul_rn(static_cast<float>(c.y), s));
+    o.z = ftz(__fmul_rn(static_cast<float>(c.z), s));
+    o.w = ftz(__fmul_rn(static_cast<float>(c.w), s));
     ob[threadIdx.x + k * kThreads] = o;
   }
 }
@@ -105,16 +110,16 @@ fold_kernel(float4* __restrict__ acc, const char4* __restrict__ q,
   const long long b = blockIdx.x;
   float4* ab = acc + b * (kBlock / 4);
   const char4* qb = q + b * (kBlock / 4);
-  const float s = __fmul_rn(absmax[b], __fmul_rn(kInv127, w));
+  const float s = ftz(__fmul_rn(ftz(absmax[b]), ftz(__fmul_rn(kInv127, w))));
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
     const int i = threadIdx.x + k * kThreads;
     const char4 c = qb[i];
-    float4 a = ab[i];
-    a.x = fmaf(static_cast<float>(c.x), s, a.x);
-    a.y = fmaf(static_cast<float>(c.y), s, a.y);
-    a.z = fmaf(static_cast<float>(c.z), s, a.z);
-    a.w = fmaf(static_cast<float>(c.w), s, a.w);
+    float4 a = ftz4(ab[i]);
+    a.x = ftz(fmaf(static_cast<float>(c.x), s, a.x));
+    a.y = ftz(fmaf(static_cast<float>(c.y), s, a.y));
+    a.z = ftz(fmaf(static_cast<float>(c.z), s, a.z));
+    a.w = ftz(fmaf(static_cast<float>(c.w), s, a.w));
     ab[i] = a;
   }
 }

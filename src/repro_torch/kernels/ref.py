@@ -1,24 +1,35 @@
-"""Plain PyTorch versions of the blockwise-int8 kernels.
+"""Plain PyTorch versions of the quantization kernels.
 
 Each function here is the semantic ground truth for one hand-written
-CUDA kernel in ``csrc/blockwise8.cu``: the wrappers run it for tensors
-that lie on the CPU, the CPU tests hold it bitwise against the JAX
-package's ``ref`` backend, and ``chip_smoke.py`` holds each kernel
-against it on the card.
+CUDA kernel in ``csrc/blockwise8.cu`` or ``csrc/fourbit.cu``: the
+wrappers run it for tensors that lie on the CPU, the CPU tests hold it
+bitwise against the JAX package's ``ref`` backend, and ``chip_smoke.py``
+holds each kernel against it on the card.
 
 The arithmetic follows what the JAX reference computes when XLA runs
-it, which is not always what its source text says:
+it, which is not always what its source text says. Every float32 step
+flushes subnormals to zero, keeping the sign, on its inputs and on its
+result — the reference's XLA CPU build runs with the x86 FTZ and DAZ
+modes on (a TPU flushes subnormals too), while PyTorch and the card keep
+them, so :func:`ftz` makes the flush explicit:
 
 * quantize: ``scale = 127 / absmax`` is a true (correctly rounded)
   division, ``q = clip(rint(x * scale), -127, 127)``, scale 0 for an
-  all-zero block.
+  all-zero block; a zero element of a block whose absmax is below
+  ``127 / FLT_MAX`` gets ``0 * inf = NaN``, which both the reference and
+  this version encode as 0.
 * dequantize: ``q * (absmax * f32(1/127))`` — XLA turns the division by
   127 into a multiply by the rounded reciprocal.
 * fold: ``fma(q, absmax * (f32(1/127) * w), acc)`` — one rounding of the
   exact ``q * s + acc``, with the scale reassociated.
+* 4-bit quantize: ``inv = 1/absmax`` correctly rounded (0 for an
+  all-zero block), ``xn = x * inv``, ``rank = sum(xn > mid)`` over the
+  15 fp32 midpoints of the sorted codebook, ``idx = perm[rank]``, and
+  byte ``j`` of a block is ``idx[2j] << 4 | idx[2j+1]``.
+* 4-bit dequantize: ``code[idx] * absmax``, one rounding.
 
-Blocks are rows of a ``(nblocks, BLOCK8)`` view; callers
-(``ops.py``) flatten and pad arbitrary shapes.
+Blocks are rows of a ``(nblocks, BLOCK8)`` or ``(nblocks, BLOCK4)``
+view; callers (``ops.py``) flatten and pad arbitrary shapes.
 """
 from __future__ import annotations
 
@@ -26,27 +37,89 @@ import numpy as np
 import torch
 
 BLOCK8 = 4096  # blockwise-int8 block size (bitsandbytes default)
+BLOCK4 = 64    # 4-bit block size (bitsandbytes / QLoRA default)
+
+#: the smallest normal float32; anything smaller in magnitude flushes
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+# bitsandbytes FP4 (E2M1-style) codebook, normalized to [-1, 1]
+# (the reference's values, bit for bit).
+FP4_CODE = np.array(
+    [
+        0.0, 0.0052083333, 0.6666666667, 1.0,
+        0.3333333333, 0.5, 0.1666666667, 0.25,
+        -0.0, -0.0052083333, -0.6666666667, -1.0,
+        -0.3333333333, -0.5, -0.1666666667, -0.25,
+    ],
+    dtype=np.float32,
+)
+
+# QLoRA NF4 codebook (information-theoretically optimal for N(0,1)).
+NF4_CODE = np.array(
+    [
+        -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+        -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+        0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+        0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+        0.7229568362236023, 1.0,
+    ],
+    dtype=np.float32,
+)
+
+CODEBOOKS = {"fp4": FP4_CODE, "nf4": NF4_CODE}
+
+
+def _sorted_code_and_perm(code: np.ndarray):
+    """Sorted codebook + permutation mapping sorted-rank -> code index.
+    The sort is stable, so FP4's ``0.0`` (index 0) ranks before its
+    ``-0.0`` (index 8)."""
+    order = np.argsort(code, kind="stable")
+    return code[order].astype(np.float32), order.astype(np.int32)
+
+
+def codebook(fmt: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(code, perm, mids)`` of a 4-bit format: the 16-entry fp32
+    codebook in index order, the int32 rank -> index permutation, and the
+    15 ascending fp32 midpoints of the sorted codebook (formed in
+    float32, as the reference forms them)."""
+    try:
+        code = CODEBOOKS[fmt]
+    except KeyError:
+        raise ValueError(f"unknown 4-bit format: {fmt!r}") from None
+    sorted_code, perm = _sorted_code_and_perm(code)
+    mids = ((sorted_code[1:] + sorted_code[:-1]) / np.float32(2.0)).astype(np.float32)
+    return code, perm, mids
 
 #: f32(1/127) = 0x1.020408p-7, the reciprocal XLA multiplies by
 INV127 = float(np.float32(1.0 / 127.0))
 
 
+def ftz(t: torch.Tensor) -> torch.Tensor:
+    """Flush float32 subnormals to zero, keeping the sign."""
+    return torch.where(t.abs() < FLT_MIN, t * 0.0, t)
+
+
+def _ftz_scalar(v: np.float32) -> float:
+    return float(np.copysign(np.float32(0.0), v)) if abs(v) < FLT_MIN else float(v)
+
+
 def quantize_blockwise8(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x2d: (nblocks, BLOCK8) float -> (int8 codes, fp32 absmax per block)."""
-    x2d = x2d.to(torch.float32)
+    x2d = ftz(x2d.to(torch.float32))
     absmax = x2d.abs().amax(dim=-1)
     # tensor / tensor: a correctly rounded division (``127.0 / t`` would
-    # be evaluated as ``t.reciprocal() * 127`` and round twice)
+    # be evaluated as ``t.reciprocal() * 127`` and round twice); never
+    # subnormal, as absmax <= FLT_MAX
     scale = torch.where(absmax > 0, torch.full_like(absmax, 127.0) / absmax,
                         torch.zeros_like(absmax))
-    q = torch.clamp(torch.round(x2d * scale[:, None]), -127, 127).to(torch.int8)
-    return q, absmax
+    q = torch.clamp(torch.round(x2d * scale[:, None]), -127, 127)
+    return torch.nan_to_num(q, nan=0.0).to(torch.int8), absmax
 
 
 def dequantize_blockwise8(q: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor:
     """(nblocks, BLOCK8) int8 + (nblocks,) absmax -> fp32."""
-    scale = absmax.to(torch.float32) * INV127
-    return q.to(torch.float32) * scale[:, None]
+    scale = ftz(ftz(absmax.to(torch.float32)) * INV127)
+    return ftz(q.to(torch.float32) * scale[:, None])
 
 
 def dequant_accumulate8_into(
@@ -59,12 +132,12 @@ def dequant_accumulate8_into(
     rounded once to float32. The float64 sum is taken with round-to-odd
     (TwoSum's error term decides the last bit), which makes the final
     rounding to float32 equal to a single correct rounding of the exact
-    value — the FMA's result, bit for bit.
+    value — the FMA's result, bit for bit (then flushed, if subnormal).
     """
-    cw = float(np.float32(INV127) * np.float32(weight))
-    s = (absmax.to(torch.float32) * cw).to(torch.float64)
+    cw = _ftz_scalar(np.float32(INV127) * np.float32(weight))
+    s = ftz(ftz(absmax.to(torch.float32)) * cw).to(torch.float64)
     p = q.to(torch.float64) * s[:, None]
-    a = acc.to(torch.float64)
+    a = ftz(acc).to(torch.float64)
     t = p + a
     bp = t - a
     err = (p - bp) + (a - (t - bp))          # exact: p + a == t + err
@@ -72,5 +145,34 @@ def dequant_accumulate8_into(
     toward = torch.where(err > 0, torch.full_like(t, float("inf")),
                          torch.full_like(t, float("-inf")))
     t = torch.where((err != 0) & even, torch.nextafter(t, toward), t)
-    acc.copy_(t)
+    acc.copy_(ftz(t.to(torch.float32)))
     return acc
+
+
+def quantize_4bit(x2d: torch.Tensor, fmt: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """x2d: (nblocks, BLOCK4) float -> ((nblocks, BLOCK4 // 2) packed uint8,
+    (nblocks,) fp32 absmax)."""
+    _code, perm, mids = codebook(fmt)
+    x2d = ftz(x2d.to(torch.float32))
+    absmax = x2d.abs().amax(dim=-1)
+    # tensor / tensor: a correctly rounded division (``1.0 / t`` would be
+    # evaluated as a reciprocal, which may differ in the last bit); it is
+    # subnormal, so flushed, for absmax > 2**126
+    inv = ftz(torch.where(absmax > 0, torch.ones_like(absmax) / absmax,
+                          torch.zeros_like(absmax)))
+    xn = ftz(x2d * inv[:, None])
+    rank = torch.zeros(xn.shape, dtype=torch.uint8, device=xn.device)
+    for m in torch.from_numpy(mids).to(xn.device):   # 15 strict fp32 compares
+        rank += xn > m
+    # a uint8 index would be read as a mask: gather with int64
+    idx = torch.from_numpy(perm).to(device=xn.device, dtype=torch.uint8)[rank.long()]
+    del rank
+    packed = (idx[:, 0::2] << 4) | idx[:, 1::2]
+    return packed, absmax
+
+
+def dequantize_4bit(packed: torch.Tensor, absmax: torch.Tensor, fmt: str) -> torch.Tensor:
+    """(nblocks, BLOCK4 // 2) packed uint8 + (nblocks,) absmax -> (nblocks, BLOCK4) fp32."""
+    code = torch.from_numpy(codebook(fmt)[0]).to(packed.device)
+    idx = torch.stack([packed >> 4, packed & 0xF], dim=-1).reshape(packed.shape[0], -1)
+    return ftz(code[idx.long()] * ftz(absmax.to(torch.float32))[:, None])

@@ -3,7 +3,8 @@
 Each kernel against its plain PyTorch version on the card, on the edge
 cases every implementation must agree on: quantize and dequantize
 bitwise, the fold bitwise (both round once: the kernel's ``fmaf`` and the
-plain version's float64 round-to-odd sum). Imports torch and the port
+plain version's float64 round-to-odd sum), and the 4-bit quantize and
+dequantize bitwise for nf4 and fp4. Imports torch and the port
 only, so it runs on the card machine, which has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -19,13 +20,18 @@ from repro_torch.kernels.cases import (  # noqa: E402
     FOLD_WEIGHTS,
     blockwise8_cases,
     fold_accumulator,
+    fourbit_cases,
+    subnormal_accumulator,
 )
 from repro_torch.kernels.quant_blockwise8 import (  # noqa: E402
     dequantize_blockwise8,
     quantize_blockwise8,
 )
 
+from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit  # noqa: E402
+
 CASES = blockwise8_cases()
+CASES4 = fourbit_cases()
 
 
 @pytest.fixture
@@ -59,3 +65,47 @@ def test_kernels_bitwise_equal_plain_versions_on_the_card(cuda, name):
     assert after["quantize_blockwise8"] - before["quantize_blockwise8"] == 1
     assert after["dequantize_blockwise8"] - before["dequantize_blockwise8"] == 1
     assert after["dequant_accumulate8_into"] - before["dequant_accumulate8_into"] == len(FOLD_WEIGHTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight", FOLD_WEIGHTS)
+def test_fold_kernel_flushes_subnormals_like_its_plain_version(cuda, weight):
+    x2d = ops.pad_to_blocks(torch.from_numpy(CASES["subnormal"]).to(cuda))
+    q, am = quantize_blockwise8(x2d)
+    acc0 = torch.from_numpy(subnormal_accumulator(q.shape[0])).to(cuda)
+    k = ops.dequant_accumulate8_into(acc0.clone(), q, am, weight)
+    p = ref.dequant_accumulate8_into(acc0.clone(), q, am, weight)
+    assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["nf4", "fp4"])
+@pytest.mark.parametrize("name", sorted(CASES4))
+def test_fourbit_kernels_bitwise_equal_plain_versions_on_the_card(cuda, name, fmt):
+    x2d = ops.pad_to_blocks(torch.from_numpy(CASES4[name]).to(cuda), ref.BLOCK4)
+    before = ops.launch_counts()
+    p, am = quantize_4bit(x2d, fmt)
+    p_p, am_p = ref.quantize_4bit(x2d, fmt)
+    assert p.dtype == torch.uint8 and p.shape == (x2d.shape[0], ref.BLOCK4 // 2)
+    assert torch.equal(p, p_p) and torch.equal(_bits(am), _bits(am_p))
+    d = dequantize_4bit(p, am, fmt)
+    assert torch.equal(_bits(d), _bits(ref.dequantize_4bit(p, am, fmt)))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["quantize_4bit"] - before["quantize_4bit"] == 1
+    assert after["dequantize_4bit"] - before["dequantize_4bit"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nblocks", [1, 2, 3, 31, 33, 4099])
+def test_fourbit_kernels_cover_any_block_count(cuda, nblocks):
+    """Ragged grids: the last warp of quantize holds half a warp's worth
+    of blocks or less, the last CTA of either kernel is partly masked."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(nblocks)
+    x2d = torch.randn((nblocks, ref.BLOCK4), generator=gen, device=cuda)
+    p, am = quantize_4bit(x2d, "nf4")
+    p_p, am_p = ref.quantize_4bit(x2d, "nf4")
+    assert torch.equal(p, p_p) and torch.equal(_bits(am), _bits(am_p))
+    d = dequantize_4bit(p, am, "nf4")
+    assert torch.equal(_bits(d), _bits(ref.dequantize_4bit(p, am, "nf4")))

@@ -4,7 +4,8 @@ and streaming fold against the JAX package's ``ref`` backend.
 On the CPU the port's wrappers run their plain PyTorch versions; these
 must give the reference's bits exactly — codes, absmax, dequantized
 values and folded sums (the plain fold reproduces the reference's fused
-multiply-add exactly, so no ulp allowance is needed). The CUDA kernels
+multiply-add exactly, so no ulp allowance is needed), subnormal inputs
+and results included (the reference flushes them to zero). The CUDA kernels
 are held against the same plain versions on the card by
 ``tests/test_torch_cuda.py`` (marker ``cuda``) and by ``chip_smoke.py``.
 """
@@ -21,6 +22,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     FOLD_WEIGHTS,
     blockwise8_cases,
     fold_accumulator,
+    subnormal_accumulator,
 )
 
 CASES = blockwise8_cases()
@@ -75,6 +77,35 @@ def test_fold_bitwise_equals_reference(name, weight, fresh):
     np.testing.assert_array_equal(_bits(out.numpy()), _bits(out_ref))
 
 
+@pytest.mark.parametrize("weight", FOLD_WEIGHTS)
+def test_fold_into_subnormal_accumulator_bitwise_equals_reference(weight):
+    """The reference flushes subnormals on the fold's inputs and result;
+    so must the port."""
+    q_ref, am_ref = _reference_quantize(CASES["subnormal"])
+    acc0 = subnormal_accumulator(q_ref.shape[0])
+    with ref_ops.backend("ref"):
+        out_ref = ref_ops.dequant_accumulate8_into(
+            jnp.asarray(acc0.copy()), jnp.asarray(q_ref), jnp.asarray(am_ref), weight)
+    out = ops.dequant_accumulate8_into(torch.from_numpy(acc0.copy()), torch.from_numpy(q_ref),
+                                       torch.from_numpy(am_ref), weight)
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(out_ref))
+
+
+def test_plain_versions_flush_subnormals():
+    """The subnormal case is a real check: without the flush, the plain
+    versions' codes, absmax and dequantized values differ from what they
+    give."""
+    x2d = torch.from_numpy(CASES["subnormal"]).reshape(-1, ref.BLOCK8)
+    q, am = ref.quantize_blockwise8(x2d)
+    assert am[0] == 0 and (q[0] == 0).all()          # an all-subnormal block
+    assert float(x2d.abs()[0].max()) > 0
+    assert (q[3][x2d[3] == 0] == 0).all()             # 0 * inf scale -> 0
+    d = ref.dequantize_blockwise8(q, am)
+    kept = q[2].float() * (am[2] * ref.INV127)
+    assert (kept.abs() < ref.FLT_MIN).any() and (kept != 0).any()
+    assert bool((d[2].abs() >= ref.FLT_MIN).logical_or(d[2] == 0).all())
+
+
 def test_plain_fold_reproduces_fma_not_unfused_arithmetic():
     """The reference's fold rounds once (an FMA); the unfused
     ``acc + q * s`` differs somewhere on these inputs, so bitwise equality
@@ -120,14 +151,18 @@ def test_non_cpu_tensor_never_falls_back_to_the_plain_version():
 
 
 def test_kernels_build_from_the_repo_source():
-    """The CUDA library is compiled from the ``.cu`` file in this repo
-    with the Hopper target and without fast math."""
-    assert _build.SOURCE.is_file() and _build.SOURCE.suffix == ".cu"
-    assert _build.SOURCE.parent.name == "csrc"
+    """The CUDA library is compiled from every ``.cu`` file under
+    ``csrc/`` in this repo with the Hopper target and without fast math,
+    and each C entry point the wrappers bind is defined in one of them."""
+    names = [p.name for p in _build.SOURCES]
+    assert names == ["blockwise8.cu", "fourbit.cu"], names
+    assert all(p.parent.name == "csrc" and p.is_file() for p in _build.SOURCES)
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
-    assert "fast_math" not in flags and "fast-math" not in flags
-    src = _build.SOURCE.read_text()
-    for entry in ("bw8_quantize", "bw8_dequantize", "bw8_fold"):
-        assert f"int {entry}(" in src
+    assert "fast_math" not in flags and "fast-math" not in flags and "-ftz" not in flags
+    src = "".join(p.read_text() for p in _build.SOURCES)
+    assert set(_build._SIGNATURES) == {"bw8_quantize", "bw8_dequantize", "bw8_fold",
+                                       "fb4_quantize", "fb4_dequantize"}
+    for entry in _build._SIGNATURES:
+        assert f"int {entry}(" in src, entry
 

@@ -93,6 +93,6 @@ def test_run_job_without_device_raises_on_a_cpu_only_host():
 
 
 def test_kernel_wrappers_have_no_fallback_handlers():
-    for name in ("quant_blockwise8.py", "fused_dequant_agg.py", "ops.py"):
+    for name in ("quant_blockwise8.py", "quant_nf4.py", "fused_dequant_agg.py", "ops.py"):
         src = (PORT / "kernels" / name).read_text()
         assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE), name
