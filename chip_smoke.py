@@ -20,9 +20,19 @@ AdamW steps:
 
 For each round it zeroes the launch counters, reads them after, and checks
 that every kernel of that path launched as often as the path implies, that
-losses and weights are finite and that every tensor moved. Last, smoke-width
+losses and weights are finite and that every tensor moved. Smoke-width
 federations of both paths on the card agree with the same federations on
 the CPU (``wire_pipeline.json`` as it stands, ``zlib`` and 2 rounds).
+
+Then the serving path (``repro_torch.launch.serve.generate``): the
+flash-attention kernel against its plain version on every case of
+``kernels.cases.ATTENTION_CASES`` and at the two serving shapes, timed
+beside PyTorch's ``scaled_dot_product_attention``; full-width llama3.2-1b
+served twice — full attention at batch 4, prompt 512, and the reference's
+long-context variant (``sliding_window`` 4096) at batch 1, prompt 8192 —
+each with the counters zeroed before and exactly one flash launch per
+layer of the prefill after; smoke-width serving on the card against the
+CPU; and a backward through the kernel, which must raise.
 
 Output: the card, build and per-kernel lines, per-phase wall times, then
 the card's name and power limit, one JSON line with every kernel's
@@ -77,8 +87,17 @@ CHUNK_BLOCKS4 = 1 << 21            # 64-blocks per plain-version comparison
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # fp32 outside the tensor cores
 
+#: the serving runs: full-width llama3.2-1b, (label, sliding window,
+#: batch, prompt, generated tokens); the window is the reference's
+#: long-context serving variant (src/repro/launch/specs.py, SWA_WINDOW)
+SERVE_RUNS = (("serve_full", None, 4, 512, 16), ("serve_window", 4096, 1, 8192, 16))
+#: card (kernel) vs CPU (plain) serving at smoke width: logits and caches
+#: within 1e-4 (fp32 matrix products and attention summed in other orders)
+SERVE_CPU_TOL = 1e-4
+
 BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
 FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: kernel wrapper -> (CUDA source, the TPU kernel's pl.pallas_call it
 #: replaces, the main path whose launches it reports)
 KERNELS = {
@@ -90,6 +109,7 @@ KERNELS = {
                                  "blockwise8"),
     "quantize_4bit": (FB4_SOURCE, "src/repro/kernels/quant_nf4.py:86", "nf4"),
     "dequantize_4bit": (FB4_SOURCE, "src/repro/kernels/quant_nf4.py:112", "nf4"),
+    "flash_attention": (FA_SOURCE, "src/repro/kernels/flash_attention.py:103", "serve_full"),
 }
 
 
@@ -135,6 +155,24 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def bits(torch, t):
     return t.contiguous().view(torch.int32)
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equal, with NaN in the same places (a NaN's payload is not
+    compared: the card's arithmetic returns its canonical NaN)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(bits(torch, a)[~nan],
+                                                            bits(torch, b)[~nan])
+
+
+def check_nonfinite_absmax(torch, name: str, absmax) -> None:
+    """The ``nan_inf`` case's blocks: NaN absmax for the blocks holding NaN
+    (0 and 3), inf for those holding an infinity only (1 and 2), a finite
+    one for block 4 — what the reference gives."""
+    if not (torch.isnan(absmax[[0, 3]]).all() and torch.isinf(absmax[[1, 2]]).all()
+            and torch.isfinite(absmax[4])):
+        fail(f"{name}: the nan_inf blocks' absmax is {absmax[:5].tolist()}, expected "
+             "[nan, inf, inf, nan, finite]")
 
 
 def release(torch) -> None:
@@ -193,26 +231,32 @@ def check_kernels(torch, dev) -> dict[str, dict]:
     def compare_quantize(name, x2d):
         q, am = quantize_blockwise8(x2d)
         q_p, am_p = ref.quantize_blockwise8(x2d)
-        if not (torch.equal(q, q_p) and torch.equal(bits(torch, am), bits(torch, am_p))):
+        if not (torch.equal(q, q_p) and same_bits(torch, am, am_p)):
             fail(f"quantize kernel disagrees with its plain version on {name}")
+        if name == "nan_inf":
+            check_nonfinite_absmax(torch, "blockwise8 quantize kernel", am)
         return q, am
 
     def compare(name, x2d, acc0, weight):
         q, am = compare_quantize(name, x2d)
         d = dequantize_blockwise8(q, am)
         d_p = ref.dequantize_blockwise8(q, am)
-        if not torch.equal(bits(torch, d), bits(torch, d_p)):
+        if not same_bits(torch, d, d_p):
             fail(f"dequantize kernel disagrees with its plain version on {name}")
         del d, d_p
         k = dequant_accumulate8_into(acc0.clone(), q, am, weight)
         p = ref.dequant_accumulate8_into(acc0.clone(), q, am, weight)
-        diff = (k - p).abs()
-        ulp = torch.nextafter(p.abs(), torch.full_like(p, math.inf)) - p.abs()
+        nan = torch.isnan(p)
+        if not torch.equal(torch.isnan(k), nan):
+            fail(f"fold kernel puts NaN elsewhere than its plain version on {name}")
+        diff = (k - p).abs()[~nan]
+        ulp = (torch.nextafter(p.abs(), torch.full_like(p, math.inf)) - p.abs())[~nan]
         if bool((diff > ulp).any()):
             fail(f"fold kernel differs from its plain version by more than 1 ulp of "
                  f"|acc| on {name} (weight {weight})")
-        err["dequant_accumulate8_into"] = max(err["dequant_accumulate8_into"],
-                                              float(diff.max()))
+        if diff.numel():
+            err["dequant_accumulate8_into"] = max(err["dequant_accumulate8_into"],
+                                                  float(diff.max()))
         return q, am
 
     for name, x in cases.blockwise8_cases().items():
@@ -223,8 +267,9 @@ def check_kernels(torch, dev) -> dict[str, dict]:
             acc0 = torch.from_numpy(accumulator(x2d.shape[0])).to(dev)
             compare(name, x2d, acc0, w)
     print(f"blockwise8 kernels agree with their plain versions on "
-          f"{len(cases.blockwise8_cases())} edge cases (quantize, dequantize bitwise; "
-          "fold within 1 ulp of |acc|)")
+          f"{len(cases.blockwise8_cases())} edge cases (quantize, dequantize bitwise, NaN "
+          "in the same places; fold within 1 ulp of |acc|); nan_inf absmax: NaN, inf, inf, "
+          "NaN, finite")
 
     rows: dict[str, dict] = {}
     flat, gen = largest_item(torch, dev)
@@ -298,19 +343,24 @@ def check_fourbit_kernels(torch, dev) -> dict[str, dict]:
 
     def compare_quantize(name, fmt, x2d, p, am):
         p_p, am_p = ref.quantize_4bit(x2d, fmt)
+        finite = torch.isfinite(am_p)
         err["quantize_4bit"] = max(err["quantize_4bit"],
                                    float((p.int() - p_p.int()).abs().max()),
-                                   float((am - am_p).abs().max()))
-        if not (torch.equal(p, p_p) and torch.equal(bits(torch, am), bits(torch, am_p))):
+                                   float((am - am_p)[finite].abs().max()))
+        if not (torch.equal(p, p_p) and same_bits(torch, am, am_p)):
             fail(f"4-bit quantize kernel disagrees with its plain version on {name} ({fmt})")
+        if name == "nan_inf":
+            check_nonfinite_absmax(torch, f"4-bit quantize kernel ({fmt})", am)
 
     def compare(name, fmt, x2d):
         p, am = quantize_4bit(x2d, fmt)
         compare_quantize(name, fmt, x2d, p, am)
         d = dequantize_4bit(p, am, fmt)
         d_p = ref.dequantize_4bit(p, am, fmt)
-        err["dequantize_4bit"] = max(err["dequantize_4bit"], float((d - d_p).abs().max()))
-        if not torch.equal(bits(torch, d), bits(torch, d_p)):
+        finite = torch.isfinite(d_p)
+        err["dequantize_4bit"] = max(err["dequantize_4bit"],
+                                     float((d - d_p)[finite].abs().max()))
+        if not same_bits(torch, d, d_p):
             fail(f"4-bit dequantize kernel disagrees with its plain version on {name} ({fmt})")
         return p, am
 
@@ -319,7 +369,8 @@ def check_fourbit_kernels(torch, dev) -> dict[str, dict]:
         for name, x in edge.items():
             compare(name, fmt, ops.pad_to_blocks(torch.from_numpy(x).to(dev), ref.BLOCK4))
     print(f"4-bit kernels agree bitwise with their plain versions on {len(edge)} edge "
-          "cases, for fp4 and nf4")
+          "cases (NaN in the same places), for fp4 and nf4; nan_inf absmax: NaN, inf, inf, "
+          "NaN, finite")
 
     rows: dict[str, dict] = {}
     flat, _gen = largest_item(torch, dev)
@@ -631,6 +682,288 @@ def check_nf4_against_cpu(torch, dev) -> dict:
     return {"trained_max_gaps": worst, "loss_rel": rel, "wire_bytes": wire["cpu"]}
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs one head attends over under the masks."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_inputs(torch, dev, B, H, KV, S, hd, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev)
+            for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+
+
+def check_flash_kernel(torch, dev) -> dict:
+    """The flash-attention kernel against its plain version on the card:
+    every case of ``kernels.cases.ATTENTION_CASES``, then the two serving
+    shapes of llama3.2-1b (32 heads, 8 KV heads, hd 64) — batch 4 x 512
+    causal, and batch 1 x 8192 causal with the 4096 window — each within
+    ``kernels.cases.ATTENTION_TOL``. At the serving shapes it times the
+    kernel, the plain version and PyTorch's ``scaled_dot_product_attention``
+    (``enable_gqa``; ``is_causal``, or a boolean mask for the window), which
+    the port never calls. The bound is 4 * hd fp32 operations per visible pair against the
+    fp32 peak, or the bytes of q, k, v and the output, whichever is larger."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cases import (
+        ATTENTION_CASES,
+        ATTENTION_TOL,
+        attention_case,
+        attention_inputs,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for name in sorted(ATTENTION_CASES):
+        c = attention_case(name)
+        dt = getattr(torch, c["dtype"])
+        q, k, v = (torch.from_numpy(a).to(dev, dt) for a in attention_inputs(name))
+        out = flash_attention(q, k, v, causal=c["causal"], window=c["window"]).float()
+        want = ref.attention(q, k, v, causal=c["causal"], window=c["window"]).float()
+        atol, rtol = ATTENTION_TOL[c["dtype"]]
+        if not bool(((out - want).abs() <= atol + rtol * want.abs()).all()):
+            fail(f"flash kernel outside (atol {atol}, rtol {rtol}) of its plain version on "
+                 f"{name}: max |err| {float((out - want).abs().max()):.3g}")
+        worst[c["dtype"]] = max(worst[c["dtype"]], float((out - want).abs().max()))
+    print(f"flash kernel within ATTENTION_TOL of its plain version on {len(ATTENTION_CASES)} "
+          f"cases: max |err| fp32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
+
+    shapes = {}
+    for label, window, B, S, _gen in SERVE_RUNS:
+        H, KV, hd = 32, 8, 64
+        q, k, v = flash_inputs(torch, dev, B, H, KV, S, hd, seed=S)
+        out = flash_attention(q, k, v, causal=True, window=window)
+        want = ref.attention(q, k, v, causal=True, window=window)
+        err = float((out - want).abs().max())
+        atol, rtol = ATTENTION_TOL["float32"]
+        if not bool(((out - want).abs() <= atol + rtol * want.abs()).all()):
+            fail(f"flash kernel outside its tolerance at the {label} shape: max |err| {err:.3g}")
+        del out, want
+        release(torch)
+        if window is None:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(S, device=dev)[:, None]
+            j = torch.arange(S, device=dev)[None, :]
+            mask = (j <= i) & (i - j < window)
+
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        pairs = visible_pairs(S, S, True, window) * B * H
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * hd * pairs)
+        ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
+        plain_ms = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, window=window),
+                           reps=5, warmup=1, batch=1)
+        release(torch)
+        lib_ms = time_ms(torch, lib, reps=10, warmup=2, batch=3)
+        release(torch)
+        shapes[label] = {"shape": [B, H, KV, S, hd], "window": window, "pairs": pairs,
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+        print(f"flash_attention ({label} shape {B}x{H}x{S}x{hd}, KV {KV}, window {window}): "
+              f"{ms:.4f} ms ({4 * hd * pairs / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, max |err| {err:.3g}")
+        del q, k, v
+        release(torch)
+    return {"cases_max_abs_err": worst, **shapes}
+
+
+def serve_phases(events: list[dict]) -> dict[str, float]:
+    spans = {e["name"]: e["dur"] / 1e6 for e in events
+             if e.get("ph") == "X" and e["name"].startswith("serve.")}
+    return {"prefill_s": spans.get("serve.prefill", 0.0),
+            "replay_s": spans.get("serve.replay", 0.0),
+            "decode_s": spans.get("serve.decode", 0.0)}
+
+
+def layer0(node):
+    """Layer 0's slice of stacked (layer-first) block parameters."""
+    return {k: layer0(v) for k, v in node.items()} if isinstance(node, dict) else node[0]
+
+
+def layer0_attention_check(torch, model, params, prompts) -> float:
+    """The kernel's attention output at layer 0 on the run's real q, k, v
+    against ``_sdpa``'s on the same tensors; returns max |err|."""
+    from repro_torch.kernels.cases import ATTENTION_TOL
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        x = L.embed_tokens(prompts, params["embed"], cfg.activ_dtype)
+        bp = layer0(params["blocks"])
+        s = prompts.shape[1]
+        positions = torch.arange(s, device=x.device)[None, :]
+        q, k, v = L._project_qkv(L.rms_norm(x, bp["attn_norm"]), bp["attn"], cfg, positions)
+        del x
+        got = L.sdpa_or_flash(q, k, v, cfg, causal=True, window=cfg.sliding_window)
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(s, device=q.device)[None, :]
+        mask = j <= i
+        if cfg.sliding_window is not None:
+            mask = mask & (i - j < cfg.sliding_window)
+        want = L._sdpa(q, k, v, mask, cfg)
+        atol, rtol = ATTENTION_TOL["float32"]
+        ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+        err = float((got - want).abs().max())
+    del q, k, v, got, want
+    release(torch)
+    if not ok:
+        fail(f"layer 0: the flash kernel's attention is outside its tolerance of _sdpa's "
+             f"(max |err| {err:.3g})")
+    return err
+
+
+def run_serve(torch, dev, label: str, window, batch: int, prompt: int, gen: int) -> dict:
+    """One serving run of full-width llama3.2-1b with seeded weights through
+    ``generate``, with the launch counters zeroed just before and read just
+    after: exactly one flash launch per layer (the prefill's; decode steps
+    have one query and never route), none of any other kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.obs import trace as obs_trace
+
+    cfg = get_config("llama3.2-1b").with_overrides(remat=False, sliding_window=window)
+    model = create_model(cfg)
+    params = model.init(0, dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    tracer = obs_trace.Tracer(sync=torch.cuda.synchronize)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with obs_trace.activate(tracer):
+        tokens = generate(model, params, prompts, gen_len=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.num_layers
+    print(f"{label} launches: {launches} (expected {want})")
+    if launches != want:
+        fail(f"kernel launches on the {label} path {launches} != {want}")
+    if tuple(tokens.shape) != (batch, prompt + gen) or tokens.dtype != torch.int32:
+        fail(f"{label}: tokens {tuple(tokens.shape)} {tokens.dtype}, expected "
+             f"({batch}, {prompt + gen}) int32")
+    if not (torch.equal(tokens[:, :prompt], prompts) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size):
+        fail(f"{label}: tokens do not extend the prompts within the vocabulary")
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, prompts)
+    if not (bool(torch.isfinite(logits).all())
+            and all(bool(torch.isfinite(t.float()).all()) for t in cache.values())):
+        fail(f"{label}: prefill logits or cache not finite")
+    del logits, cache
+    release(torch)
+    layer0_err = layer0_attention_check(torch, model, params, prompts)
+
+    phases = serve_phases(tracer.chrome_trace()["traceEvents"])
+    decode_steps = gen - 1
+    report = {
+        "batch": batch, "prompt": prompt, "gen": gen, "window": window, "wall_s": wall,
+        **phases,
+        "replay_ms_per_token": 1e3 * phases["replay_s"] / prompt if window is None else None,
+        "decode_ms_per_token": 1e3 * phases["decode_s"] / max(decode_steps, 1),
+        "tokens_per_s": batch * gen / wall, "launches": launches,
+        "layer0_max_abs_err": layer0_err, "max_memory_allocated_bytes": peak,
+        "allocated_before_bytes": allocated_before,
+        "last_tokens": tokens[0, -gen:].tolist(),
+    }
+    replay = (f"replay {report['replay_ms_per_token']:.3f} ms/token ({prompt} steps), "
+              if window is None else "")
+    print(f"{label}: batch {batch}, prompt {prompt}, gen {gen}, window {window}: wall "
+          f"{wall:.3f} s, prefill {phases['prefill_s']:.4f} s, {replay}decode "
+          f"{report['decode_ms_per_token']:.3f} ms/token ({decode_steps} steps), "
+          f"{report['tokens_per_s']:.2f} generated tokens/s; max_memory_allocated {peak} "
+          f"bytes ({allocated_before} before); layer-0 attention max |err| {layer0_err:.3g}")
+    print(f"{label} tokens[0, -{gen}:]: {report['last_tokens']}")
+    del model, params, prompts, tokens
+    release(torch)
+    return report
+
+
+def check_serve_against_cpu(torch, dev) -> dict:
+    """Smoke-width llama3.2-1b served with the same weights on the card
+    (prefill through the kernel: both prompts are multiples of 128) and on
+    the CPU (the masked softmax): full attention at prompt 128, and
+    ``sliding_window`` 64 at prompt 256. Prefill logits and caches agree
+    within ``SERVE_CPU_TOL``; greedy tokens are equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.utils.trees import flatten_state_dict, unflatten_state_dict
+
+    report = {}
+    for window, prompt in ((None, 128), (64, 256)):
+        cfg = get_smoke_config("llama3.2-1b").with_overrides(remat=False, sliding_window=window)
+        model = create_model(cfg)
+        cpu_params = model.init(0, "cpu")
+        card_params = unflatten_state_dict(
+            {k: v.to(dev) for k, v in flatten_state_dict(cpu_params).items()})
+        prompts = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, prompt)).astype(np.int32))
+        outs = {}
+        ops.reset_launch_counts()
+        for where, d, params in (("cpu", "cpu", cpu_params), ("card", dev, card_params)):
+            with torch.inference_mode():
+                logits, cache = model.prefill(params, prompts.to(d))
+            tokens = generate(model, params, prompts.to(d), gen_len=8)
+            outs[where] = (logits.cpu(), {k: v.cpu() for k, v in cache.items()}, tokens.cpu())
+        launches = ops.launch_counts()["flash_attention"]
+        if launches != 2 * cfg.num_layers:
+            fail(f"smoke serving on the card launched the flash kernel {launches} times, "
+                 f"expected {2 * cfg.num_layers} (two prefills)")
+        err = 0.0
+        for got, want in [(outs["card"][0], outs["cpu"][0])] + [
+                (outs["card"][1][k], outs["cpu"][1][k]) for k in outs["cpu"][1]]:
+            got, want = got.float(), want.float()
+            if not bool(((got - want).abs() <= SERVE_CPU_TOL * (1 + want.abs())).all()):
+                fail(f"smoke serving (window {window}): card and CPU prefill differ by "
+                     f"{float((got - want).abs().max()):.3g}")
+            err = max(err, float((got - want).abs().max()))
+        if not torch.equal(outs["card"][2], outs["cpu"][2]):
+            fail(f"smoke serving (window {window}): greedy tokens differ between card and CPU")
+        key = "full_128" if window is None else "window64_256"
+        report[key] = {"max_abs_err": err, "tokens": outs["cpu"][2][0, -8:].tolist()}
+        print(f"smoke serving card vs CPU, window {window}, prompt {prompt}: prefill logits "
+              f"and caches within {err:.3g}, greedy tokens equal "
+              f"({report[key]['tokens']})")
+    return report
+
+
+def check_forward_only(torch, dev) -> None:
+    """A backward through the flash kernel must raise NotImplementedError,
+    as the reference's kernel has no gradient."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (t.requires_grad_(True) for t in flash_inputs(torch, dev, 1, 4, 2, 128, 64, 3))
+    out = flash_attention(q, k, v)
+    try:
+        out.sum().backward()
+    except NotImplementedError as exc:
+        print(f"flash kernel backward raises NotImplementedError: {exc}")
+    else:
+        fail("a backward through the flash kernel did not raise")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -680,7 +1013,20 @@ def main(argv=None) -> int:
     parity = check_against_cpu(torch, dev)
     parity_nf4 = check_nf4_against_cpu(torch, dev)
 
-    paths = {"blockwise8": bw8, "nf4": nf4}
+    flash = check_flash_kernel(torch, dev)
+    serve = {label: run_serve(torch, dev, label, window, batch, prompt, gen)
+             for label, window, batch, prompt, gen in SERVE_RUNS}
+    serve_cpu = check_serve_against_cpu(torch, dev)
+    check_forward_only(torch, dev)
+    windowed = flash["serve_window"]
+    rows["flash_attention"] = {
+        **{k: flash["serve_full"][k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by", "max_abs_err")},
+        "windowed": {**windowed, "launches": serve["serve_window"]["launches"]
+                     ["flash_attention"]},
+        "cases_max_abs_err": flash["cases_max_abs_err"]}
+
+    paths = {"blockwise8": bw8, "nf4": nf4, **serve}
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[path]["launches"][name], **rows[name]}
@@ -692,7 +1038,9 @@ def main(argv=None) -> int:
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
-                       "cpu_parity": parity, "cpu_parity_nf4": parity_nf4}, fh, indent=1)
+                       "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
+                       "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu},
+                      fh, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

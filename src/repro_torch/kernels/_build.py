@@ -45,6 +45,10 @@ _SIGNATURES = {
     # device x, packed, absmax; count; host code, mids, perm; stream
     "fb4_quantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
     "fb4_dequantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
+    # q, k, v, o; B, H, KV, sq, sk, hd; bf16, causal, has_window; window;
+    # scale; stream
+    "flash_attention_fwd": [_P, _P, _P, _P, *[ctypes.c_longlong] * 6,
+                            *[ctypes.c_int] * 3, ctypes.c_longlong, ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
-"""Edge cases every implementation of the quantization ops must agree on.
+"""Edge cases every implementation of the kernels must agree on.
 
 The CPU tests feed them to the JAX reference and to the port's plain
-versions; ``chip_smoke.py`` feeds them to the CUDA kernels and the plain
-versions on the card. Inputs are made with numpy from a fixed seed.
+versions; ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` feed them to
+the CUDA kernels and the plain versions on the card. Inputs are made with
+numpy from a fixed seed.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ FOLD_WEIGHTS = (1.0, 8.0, 0.37)
 
 def blockwise8_cases(seed: int = 1234) -> dict[str, np.ndarray]:
     """Named flat fp32 inputs: a ragged length, an all-zero block, -0.0
-    (a whole block and scattered), magnitudes from 1e-3 to 1e3, and
-    subnormals (see :func:`subnormal_blocks`)."""
+    (a whole block and scattered), magnitudes from 1e-3 to 1e3,
+    subnormals (see :func:`subnormal_blocks`) and NaN and infinities (see
+    :func:`nonfinite_blocks`)."""
     rng = np.random.default_rng(seed)
     cases: dict[str, np.ndarray] = {}
     cases["ragged_6322"] = (rng.standard_normal(6322) * 3.0).astype(np.float32)
@@ -32,7 +34,23 @@ def blockwise8_cases(seed: int = 1234) -> dict[str, np.ndarray]:
         cases[f"scale_1e{e}"] = (
             rng.standard_normal(2 * BLOCK8 + 17) * 10.0 ** e).astype(np.float32)
     cases["subnormal"] = subnormal_blocks(BLOCK8, rng)
+    cases["nan_inf"] = nonfinite_blocks(BLOCK8, rng)
     return cases
+
+
+def nonfinite_blocks(block: int, rng: np.random.Generator) -> np.ndarray:
+    """Normal blocks, each but the last holding non-finite values: one NaN;
+    one +inf; one -inf; a negative NaN with both infinities; and a finite
+    block after them. The reference's absmax is NaN for a block holding
+    NaN and inf for one holding an infinity only."""
+    out = rng.standard_normal((5, block)).astype(np.float32)
+    out[0, 5] = np.nan
+    out[1, 7] = np.inf
+    out[2, 3] = -np.inf
+    out[3, 1] = -np.float32(np.nan)
+    out[3, 2] = np.inf
+    out[3, block - 1] = -np.inf
+    return out.reshape(-1)
 
 
 def subnormal_blocks(block: int, rng: np.random.Generator) -> np.ndarray:
@@ -79,7 +97,8 @@ def fourbit_cases(seed: int = 4321) -> dict[str, np.ndarray]:
     all-zero block, -0.0 (a whole block and scattered), blocks whose
     normalised values sit exactly on each of the 15 midpoints of each
     codebook, one ulp either side of them, and at +-1, magnitudes from
-    1e-3 to 1e3, and subnormals (see :func:`subnormal_blocks`)."""
+    1e-3 to 1e3, subnormals (see :func:`subnormal_blocks`) and NaN and
+    infinities (see :func:`nonfinite_blocks`)."""
     rng = np.random.default_rng(seed)
     cases: dict[str, np.ndarray] = {}
     cases["ragged_2391"] = (rng.standard_normal(2391) * 3.0).astype(np.float32)
@@ -105,4 +124,57 @@ def fourbit_cases(seed: int = 4321) -> dict[str, np.ndarray]:
         cases[f"scale_1e{e}"] = (
             rng.standard_normal(9 * BLOCK4 + 41) * 10.0 ** e).astype(np.float32)
     cases["subnormal"] = subnormal_blocks(BLOCK4, rng)
+    cases["nan_inf"] = nonfinite_blocks(BLOCK4, rng)
     return cases
+
+
+#: the flash-attention cases: batch, query heads, KV heads, query and key
+#: lengths, head dim, dtype, causal, window (None = no window)
+ATTENTION_FIELDS = ("B", "H", "KV", "sq", "sk", "hd", "dtype", "causal", "window")
+ATTENTION_CASES: dict[str, tuple] = {
+    # query heads per KV head: 1, 2, 4 and 8
+    "group1": (2, 4, 4, 128, 128, 64, "float32", True, None),
+    "group2": (2, 4, 2, 256, 256, 64, "float32", True, None),
+    "group4": (1, 8, 2, 128, 128, 64, "float32", True, None),
+    "group8": (1, 8, 1, 128, 128, 64, "float32", True, None),
+    "hd128": (2, 4, 2, 256, 256, 128, "float32", True, None),
+    "non_causal": (1, 2, 2, 128, 128, 64, "float32", False, None),
+    "window32": (1, 2, 1, 256, 256, 64, "float32", True, 32),
+    "window64": (1, 2, 1, 256, 256, 64, "float32", True, 64),
+    # a window narrower than a 64-row tile
+    "window16": (1, 4, 2, 256, 256, 128, "float32", True, 16),
+    "window_non_causal": (1, 2, 1, 192, 192, 64, "float32", False, 40),
+    # Sq != Sk, as in tests/test_flash_attention.py::_qkv (prompt vs cache)
+    "cross_lengths": (1, 2, 2, 64, 256, 64, "float32", False, None),
+    # rows past Sk + window - 1 see no key: a uniform softmax over all Sk
+    "fully_masked_rows": (1, 2, 1, 256, 64, 64, "float32", True, 32),
+    # lengths that are no multiple of a tile (the plain version's and the
+    # kernel's only; the reference's kernel needs whole blocks)
+    "ragged": (1, 4, 2, 200, 200, 64, "float32", True, 48),
+    "bf16": (1, 2, 2, 128, 128, 64, "bfloat16", True, None),
+    "bf16_hd128_window": (1, 4, 1, 256, 256, 128, "bfloat16", True, 64),
+}
+
+
+#: the flash-attention kernel against its plain version, by dtype: (atol,
+#: rtol). fp32: both sum in fp32 in different orders (hd products, up to
+#: 8192 keys), ~1e-6 expected, 1e-4 allowed — 20x inside the reference's
+#: own 2e-3 for its kernel; bf16: the same fp32 result rounded to bf16 on
+#: both sides may land one bf16 ulp (2**-7 relative) apart
+ATTENTION_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -7)}
+
+
+def attention_case(name: str) -> dict:
+    """One case of :data:`ATTENTION_CASES` as a dict of its fields."""
+    return dict(zip(ATTENTION_FIELDS, ATTENTION_CASES[name]))
+
+
+def attention_inputs(name: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """fp32 q (B,H,Sq,hd), k and v (B,KV,Sk,hd), standard normal from a
+    seed of the case's own; callers cast them to the case's dtype."""
+    c = attention_case(name)
+    rng = np.random.default_rng(sorted(ATTENTION_CASES).index(name) + 17)
+    q = rng.standard_normal((c["B"], c["H"], c["sq"], c["hd"])).astype(np.float32)
+    k = rng.standard_normal((c["B"], c["KV"], c["sk"], c["hd"])).astype(np.float32)
+    v = rng.standard_normal((c["B"], c["KV"], c["sk"], c["hd"])).astype(np.float32)
+    return q, k, v

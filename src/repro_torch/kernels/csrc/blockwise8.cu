@@ -19,6 +19,9 @@
 // division and products (__fdiv_rn / __fmul_rn), rintf (half to even), an
 // explicit fmaf for the fold, subnormals flushed to zero (common.cuh), and a
 // zero element of a block whose scale overflows (0 * inf = NaN) encoded as 0.
+// The absmax keeps NaN (an unsigned max of abs_bits): a block holding NaN has
+// absmax NaN and all codes 0 (scale 0), one holding +-inf absmax inf, as in
+// the reference.
 // The build uses -fmad=false so nothing else is contracted. Do not build with
 // --use_fast_math.
 //
@@ -43,8 +46,8 @@ __device__ __forceinline__ signed char code_of(float x, float scale) {
   return r != r ? 0 : static_cast<signed char>(fminf(fmaxf(r, -127.f), 127.f));
 }
 
-__device__ __forceinline__ float abs_max4(float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+__device__ __forceinline__ unsigned abs_max4(float4 v) {
+  return max(max(abs_bits(v.x), abs_bits(v.y)), max(abs_bits(v.z), abs_bits(v.w)));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -55,22 +58,23 @@ quantize_kernel(const float4* __restrict__ x, char4* __restrict__ q,
   char4* qb = q + b * (kBlock / 4);
 
   float4 v[kVecs];
-  float m = 0.f;
+  unsigned m = 0;   // the bits of max |x| (abs_bits: NaN wins)
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
     v[k] = ftz4(xb[threadIdx.x + k * kThreads]);
-    m = fmaxf(m, abs_max4(v[k]));
+    m = max(m, abs_max4(v[k]));
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
   }
-  __shared__ float warp_max[kThreads / 32];
+  __shared__ unsigned warp_max[kThreads / 32];
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
   __syncthreads();
-  float am = warp_max[0];
+  unsigned am_bits = warp_max[0];
 #pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) am = fmaxf(am, warp_max[w]);
+  for (int w = 1; w < kThreads / 32; ++w) am_bits = max(am_bits, warp_max[w]);
+  const float am = __uint_as_float(am_bits);
 
   const float scale = am > 0.f ? __fdiv_rn(127.f, am) : 0.f;
 #pragma unroll

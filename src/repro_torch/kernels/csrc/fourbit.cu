@@ -43,7 +43,9 @@
 // host, nibble order puts the even element in the high nibble, dequantize is
 // one __fmul_rn(code[idx], absmax), which keeps FP4's -0.0 entries, and every
 // step flushes subnormals (common.cuh). The build uses -fmad=false; do not
-// build with --use_fast_math.
+// build with --use_fast_math. The absmax keeps NaN (an unsigned max of
+// abs_bits): a block holding NaN gets absmax NaN and inv 0 (NaN > 0 is false),
+// as in the reference.
 //
 // Plain C interface (loaded with ctypes): raw device pointers, host pointers to
 // the codebook, its midpoints and its permutation (copied into the kernel's
@@ -97,12 +99,14 @@ quantize4_kernel(const float4* __restrict__ x, uint16_t* __restrict__ packed,
 #pragma unroll
   for (int k = 0; k < kUnits; ++k) {
     const long long t = first + k * kThreads4;   // a block's 16 units share validity
-    float m = fmaxf(fmaxf(fabsf(v[k].x), fabsf(v[k].y)),
-                    fmaxf(fabsf(v[k].z), fabsf(v[k].w)));
+    // the bits of max |x| (abs_bits: NaN wins)
+    unsigned mb = max(max(abs_bits(v[k].x), abs_bits(v[k].y)),
+                      max(abs_bits(v[k].z), abs_bits(v[k].w)));
 #pragma unroll
     for (int off = kLanesPerBlock / 2; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      mb = max(mb, __shfl_xor_sync(0xffffffffu, mb, off));
     }
+    const float m = __uint_as_float(mb);
     if (t < nquads) {
       const float inv = m > 0.f ? ftz(__fdiv_rn(1.f, m)) : 0.f;
       const uint32_t i0 = code_index(ftz(__fmul_rn(v[k].x, inv)), mid7, mids, cb.perm);

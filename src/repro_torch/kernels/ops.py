@@ -1,7 +1,8 @@
 """Public quantization ops: arbitrary-shape tensors in, blocked payloads out.
 
 Mirror of ``src/repro/kernels/ops.py`` for the blockwise-int8 and 4-bit
-(fp4 / nf4) paths. Dispatch is by device, not by a backend switch: a
+(fp4 / nf4) paths; :data:`KERNELS` also lists the flash-attention
+wrapper (``flash_attention.py``), which the model calls directly. Dispatch is by device, not by a backend switch: a
 CUDA tensor runs the hand-written kernel, a CPU tensor its plain version
 (see the wrappers in ``quant_blockwise8.py``, ``quant_nf4.py`` and
 ``fused_dequant_agg.py``). Both give the same bits. Padding here is wire
@@ -18,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import fused_dequant_agg, quant_blockwise8, quant_nf4
+from repro_torch.kernels import flash_attention, fused_dequant_agg, quant_blockwise8, quant_nf4
 from repro_torch.kernels.ref import BLOCK4, BLOCK8
 
 #: every kernel wrapper whose ``launches`` counter a run can read
@@ -28,6 +29,7 @@ KERNELS = {
     "dequant_accumulate8_into": fused_dequant_agg.dequant_accumulate8_into,
     "quantize_4bit": quant_nf4.quantize_4bit,
     "dequantize_4bit": quant_nf4.dequantize_4bit,
+    "flash_attention": flash_attention.flash_attention,
 }
 
 

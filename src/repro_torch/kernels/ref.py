@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the quantization kernels.
+"""Plain PyTorch versions of the kernels.
 
 Each function here is the semantic ground truth for one hand-written
-CUDA kernel in ``csrc/blockwise8.cu`` or ``csrc/fourbit.cu``: the
-wrappers run it for tensors that lie on the CPU, the CPU tests hold it
-bitwise against the JAX package's ``ref`` backend, and ``chip_smoke.py``
-holds each kernel against it on the card.
+CUDA kernel in ``csrc/blockwise8.cu``, ``csrc/fourbit.cu`` or
+``csrc/flash_attention.cu``: the wrappers run it for tensors that lie on
+the CPU, the CPU tests hold it against the JAX package's ``ref`` backend
+(the quantization ops bitwise), and ``chip_smoke.py`` holds each kernel
+against it on the card.
 
 The arithmetic follows what the JAX reference computes when XLA runs
 it, which is not always what its source text says. Every float32 step
@@ -30,8 +31,15 @@ them, so :func:`ftz` makes the flush explicit:
 
 Blocks are rows of a ``(nblocks, BLOCK8)`` or ``(nblocks, BLOCK4)``
 view; callers (``ops.py``) flatten and pad arbitrary shapes.
+
+:func:`attention` mirrors the reference's attention oracle
+(``src/repro/kernels/ref.py::attention``), the plain version of the
+flash-attention kernel; it is held to a tolerance, not to bits.
 """
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -176,3 +184,34 @@ def dequantize_4bit(packed: torch.Tensor, absmax: torch.Tensor, fmt: str) -> tor
     code = torch.from_numpy(codebook(fmt)[0]).to(packed.device)
     idx = torch.stack([packed >> 4, packed & 0xF], dim=-1).reshape(packed.shape[0], -1)
     return ftz(code[idx.long()] * ftz(absmax.to(torch.float32))[:, None])
+
+
+#: the mask fill of masked attention scores (finite, as in the reference)
+MASK_FILL = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) -> (B,H,Sq,hd) in q's dtype.
+
+    Plain softmax attention in fp32: scores ``q.k / sqrt(hd)``, query head
+    ``h`` reading KV head ``h // (H / KV)``; key ``j`` is visible from
+    query ``i`` when ``j <= i`` (causal) and ``i - j < window`` (window),
+    both indices counted from 0; masked scores are ``-1e30``, so a row
+    that sees no key averages every value uniformly, as the reference's."""
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, Sq, hd).to(torch.float32)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(torch.float32)) / math.sqrt(hd)
+    qi = torch.arange(Sq, device=q.device)[:, None]
+    ki = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window is not None:
+        mask = mask & (qi - ki < window)
+    s = torch.where(mask, s, MASK_FILL)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
+    return out.reshape(B, H, Sq, hd).to(q.dtype)

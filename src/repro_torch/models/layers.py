@@ -1,13 +1,16 @@
 """Shared neural building blocks, dense subset: parameter specs, RMSNorm,
-RoPE, GQA attention, the gated MLP, embedding/head and the LM loss.
+RoPE, GQA attention with its decode caches, the gated MLP, embedding/head
+and the LM loss.
 
 Mirror of ``src/repro/models/layers.py``. Everything is functional
 (params are plain dicts of tensors) and keeps the reference's layout:
 weights are ``(d_in, d_out)`` for ``x @ W``, and per-layer parameters
-stack on a leading layer axis. Attention is the masked-softmax path of
-the reference's ``_sdpa`` in plain PyTorch; the flash-attention kernel
-(taken by the reference only under its ``pallas`` backend at
-seq % 128 == 0) is not ported yet (ROADMAP B7). Matrix products are
+stack on a leading layer axis. Full-sequence attention
+(:func:`sdpa_or_flash`) takes the hand-written flash-attention kernel
+for CUDA tensors when both lengths are multiples of 128 — the
+reference's routing under its ``pallas`` backend, a CUDA tensor standing
+in for that backend — and the masked softmax ``_sdpa`` otherwise. The
+kernel is forward-only, as the reference's is. Matrix products are
 ``torch.matmul`` in fp32, as the reference leaves them to XLA.
 """
 from __future__ import annotations
@@ -18,6 +21,11 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import (
+    DEFAULT_BLOCK_K,
+    DEFAULT_BLOCK_Q,
+    flash_attention,
+)
 from repro_torch.models import base as B
 
 
@@ -120,8 +128,10 @@ def rope_table(positions: torch.Tensor, head_dim: int,
     """positions: (...,) int -> cos/sin of shape positions.shape + (head_dim//2,)."""
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exponent)
+    # torch.full builds the base on the device; torch.tensor would copy it
+    # from the host, and that copy synchronises the stream
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=positions.device), exponent)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -177,33 +187,112 @@ def _project_qkv(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
           cfg: B.ModelConfig) -> torch.Tensor:
-    """q: (b,s,H,hd); k,v: (b,t,KV,hd); mask: (s,t) bool, True = attend."""
+    """q: (b,s,H,hd); k,v: (b,t,KV,hd); mask: True = attend, broadcast
+    against the (b,KV,G,s,t) scores — (s,t), or (b,1,1,1,t) from decode."""
     bsz, s, H, hd = q.shape
     KV = cfg.num_kv_heads
     G = H // KV
     qg = q.reshape(bsz, s, KV, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
-    scores = torch.where(mask, scores, torch.tensor(-1e30, dtype=torch.float32,
-                                                    device=scores.device))
+    scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v)
     return out.reshape(bsz, s, H * hd)
 
 
+def sdpa_or_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: B.ModelConfig, *,
+                  causal: bool, window: Optional[int]) -> torch.Tensor:
+    """Full-sequence attention; q (b,s,H,hd), k,v (b,t,KV,hd) -> (b,s,H*hd).
+
+    Routes to the flash-attention kernel for CUDA tensors when
+    ``s % 128 == 0`` and ``t % 128 == 0`` (the reference's condition,
+    ``layers.py:276-280``), to the masked softmax otherwise. The kernel
+    takes (B,heads,S,hd) contiguous tensors, so q, k and v are copied to
+    that layout and the output copied back."""
+    bsz, s, H, hd = q.shape
+    t = k.shape[1]
+    if q.device.type == "cuda" and s % DEFAULT_BLOCK_Q == 0 and t % DEFAULT_BLOCK_K == 0:
+        out = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous(), causal=causal, window=window)
+        return out.transpose(1, 2).reshape(bsz, s, H * hd)
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(t, device=q.device)[None, :]
+    mask = (j <= i) if causal else torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if window is not None:
+        mask = mask & (i - j < window)
+    return _sdpa(q, k, v, mask, cfg)
+
+
 def attn_forward(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig, *,
                  causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Training attention over a full sequence (masked softmax)."""
+    """Training / prefill attention over a full sequence."""
     bsz, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(x, p, cfg, positions)
-    i = torch.arange(s, device=x.device)[:, None]
-    j = torch.arange(s, device=x.device)[None, :]
-    mask = (j <= i) if causal else torch.ones((s, s), dtype=torch.bool, device=x.device)
-    if window is not None:
-        mask = mask & (i - j < window)
-    out = _sdpa(q, k, v, mask, cfg)
+    out = sdpa_or_flash(q, k, v, cfg, causal=causal, window=window)
     return out @ p["wo"].to(x.dtype)
+
+
+# -- decode caches -------------------------------------------------------------
+
+def init_full_cache(cfg: B.ModelConfig, batch: int, max_len: int, dtype: torch.dtype,
+                    device: Any) -> dict[str, torch.Tensor]:
+    kvf = cfg.kv_feat
+    return {
+        "k": torch.zeros((batch, max_len, kvf), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, kvf), dtype=dtype, device=device),
+    }
+
+
+def init_window_cache(cfg: B.ModelConfig, batch: int, window: int, dtype: torch.dtype,
+                      device: Any) -> dict[str, torch.Tensor]:
+    kvf = cfg.kv_feat
+    return {
+        "k": torch.zeros((batch, window, kvf), dtype=dtype, device=device),
+        "v": torch.zeros((batch, window, kvf), dtype=dtype, device=device),
+        # absolute positions stored, -1 = empty
+        "pos": torch.full((batch, window), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_decode(x: torch.Tensor, p: dict[str, torch.Tensor], cache: dict[str, torch.Tensor],
+                pos: int, cfg: B.ModelConfig, *,
+                window: Optional[int] = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One-token decode step. x: (b, 1, d); pos: the current index.
+
+    Full cache: writes k/v at ``pos`` and attends over [0, pos]. Window
+    cache: writes at ``pos % window`` (rolling) and attends over the
+    stored absolute positions — O(window) memory for any context length.
+    A write index past the cache is clamped to its last slot, as
+    ``lax.dynamic_update_slice`` clamps it.
+
+    Unlike the reference, which returns new arrays, this writes the new
+    k/v (and position) into ``cache``'s tensors in place and returns the
+    same dict.
+    """
+    bsz, one, _ = x.shape
+    if one != 1:
+        raise ValueError(f"decode takes one token per sequence, got {one}")
+    hd = cfg.resolved_head_dim
+    positions = torch.full((bsz, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(x, p, cfg, positions)
+    kvf = cfg.kv_feat
+    t = cache["k"].shape[1]
+    slot = min(pos if window is None else pos % window, t - 1)
+    cache["k"][:, slot] = k_new.reshape(bsz, kvf).to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new.reshape(bsz, kvf).to(cache["v"].dtype)
+    if window is None:
+        mask = (torch.arange(t, device=x.device) <= pos)[None, None, None, None, :]
+    else:
+        cache["pos"][:, slot] = pos
+        pc = cache["pos"]
+        valid = (pc >= 0) & (pc <= pos) & (pos - pc < window)
+        mask = valid[:, None, None, None, :]                  # (b,1,1,1,w)
+    k_all = cache["k"].reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
+    v_all = cache["v"].reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
+    out = _sdpa(q, k_all, v_all, mask, cfg)
+    return out @ p["wo"].to(x.dtype), cache
 
 
 # ---------------------------------------------------------------------------

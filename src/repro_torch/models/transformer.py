@@ -7,8 +7,11 @@ on a leading layer axis (``blocks.attn.wq`` is (L, d, q_feat)), exactly
 as the reference's ``lax.scan`` consumes them, so flat names and wire
 bytes match; the forward walks the layers in a Python loop over
 ``unbind`` views (one backward ``stack`` per parameter, no per-layer
-full-size gradient buffers). MoE, VLM prefixes and the decode cache wait
-for later slices (ROADMAP A12).
+full-size gradient buffers). Serving: ``prefill`` runs the prompt
+through :func:`layers.sdpa_or_flash` and returns the last position's
+logits and a cache; ``decode_step`` adds one token, writing the stacked
+(layer-first) cache in place. MoE and VLM prefixes wait for later slices
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -36,6 +39,16 @@ def _block_forward(x: torch.Tensor, bp: dict[str, Any], cfg: B.ModelConfig, *,
     x = x + h
     h = L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
     return x + h
+
+
+def _block_decode(x: torch.Tensor, bp: dict[str, Any], cache: dict[str, torch.Tensor],
+                  pos: int, cfg: B.ModelConfig, *,
+                  window: Optional[int]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    h, cache = L.attn_decode(L.rms_norm(x, bp["attn_norm"]), bp["attn"], cache, pos, cfg,
+                             window=window)
+    x = x + h
+    h = L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
+    return x + h, cache
 
 
 def _unbind_tree(node: Any) -> Any:
@@ -92,3 +105,61 @@ class DecoderLM:
         lm = L.causal_lm_loss(logits[:, :-1], batch["labels"][:, 1:], cfg.z_loss)
         total = lm + cfg.aux_loss_coef * aux
         return total, {"lm_loss": lm, "aux_loss": aux}
+
+    # -- serving -------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, device: Any) -> dict[str, torch.Tensor]:
+        """Zeroed decode cache, stacked over layers: k, v (L, batch, T, kv_feat)
+        with T = max_len, or min(window, max_len) plus the absolute
+        positions ``pos`` (L, batch, T) for a sliding-window model."""
+        cfg = self.cfg
+        window = cfg.sliding_window
+        if window is not None:
+            one = L.init_window_cache(cfg, batch, min(window, max_len), cfg.activ_dtype, device)
+        else:
+            one = L.init_full_cache(cfg, batch, max_len, cfg.activ_dtype, device)
+        return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.ndim)
+                for k, v in one.items()}
+
+    def prefill(self, params: dict[str, Any],
+                tokens: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Run the full prompt, returning last-position logits (b, 1, vocab)
+        and a cache sized to the prompt (decode continues from pos = S)."""
+        cfg = self.cfg
+        window = cfg.sliding_window
+        x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
+        bsz, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None, :]
+        w = s if window is None else min(window, s)
+        unbound = _unbind_tree(params["blocks"])
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            bp = _layer(unbound, i)
+            xin = L.rms_norm(x, bp["attn_norm"])
+            q, k, v = L._project_qkv(xin, bp["attn"], cfg, positions)
+            out = L.sdpa_or_flash(q, k, v, cfg, causal=True, window=window)
+            x = x + out @ bp["attn"]["wo"].to(x.dtype)
+            x = x + L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
+            ks.append(k.reshape(bsz, s, cfg.kv_feat)[:, s - w:].to(cfg.activ_dtype))
+            vs.append(v.reshape(bsz, s, cfg.kv_feat)[:, s - w:].to(cfg.activ_dtype))
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if window is not None:
+            pos = torch.arange(s - w, s, dtype=torch.int32, device=x.device)
+            cache["pos"] = pos.expand(cfg.num_layers, bsz, w).contiguous()
+        logits = L.lm_logits(x[:, -1:], params["embed"])
+        return logits, cache
+
+    def decode_step(self, params: dict[str, Any], cache: dict[str, torch.Tensor],
+                    tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """One new token for the whole batch: tokens (b, 1) at position
+        ``pos`` -> logits (b, 1, vocab). ``cache`` is updated in place
+        (each layer writes through a view of the stacked tensors) and
+        returned."""
+        cfg = self.cfg
+        x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
+        unbound = _unbind_tree(params["blocks"])
+        for i in range(cfg.num_layers):
+            layer_cache = {name: t[i] for name, t in cache.items()}
+            x, _ = _block_decode(x, _layer(unbound, i), layer_cache, pos, cfg,
+                                 window=cfg.sliding_window)
+        logits = L.lm_logits(x, params["embed"])
+        return logits, cache

@@ -4,8 +4,13 @@ Each kernel against its plain PyTorch version on the card, on the edge
 cases every implementation must agree on: quantize and dequantize
 bitwise, the fold bitwise (both round once: the kernel's ``fmaf`` and the
 plain version's float64 round-to-odd sum), and the 4-bit quantize and
-dequantize bitwise for nf4 and fp4. Imports torch and the port
-only, so it runs on the card machine, which has no JAX:
+dequantize bitwise for nf4 and fp4 — with NaN in the same places where a
+case holds NaN (a NaN's payload bits are not compared: the card's
+arithmetic returns its canonical NaN). Flash attention is held to the
+tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
+``chip_smoke.py`` uses too), and its backward must
+raise. Imports torch and the port only, so it runs on the card machine,
+which has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -17,12 +22,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
+    ATTENTION_CASES,
+    ATTENTION_TOL,
     FOLD_WEIGHTS,
+    attention_case,
+    attention_inputs,
     blockwise8_cases,
     fold_accumulator,
     fourbit_cases,
     subnormal_accumulator,
 )
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.quant_blockwise8 import (  # noqa: E402
     dequantize_blockwise8,
     quantize_blockwise8,
@@ -45,6 +55,12 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
+def _same(a, b):
+    """Bitwise equal, NaN in the same places (payloads not compared)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(_bits(a)[~nan], _bits(b)[~nan])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernels_bitwise_equal_plain_versions_on_the_card(cuda, name):
@@ -52,14 +68,14 @@ def test_kernels_bitwise_equal_plain_versions_on_the_card(cuda, name):
     before = ops.launch_counts()
     q, am = quantize_blockwise8(x2d)
     q_p, am_p = ref.quantize_blockwise8(x2d)
-    assert torch.equal(q, q_p) and torch.equal(_bits(am), _bits(am_p))
+    assert torch.equal(q, q_p) and _same(am, am_p)
     d = dequantize_blockwise8(q, am)
-    assert torch.equal(_bits(d), _bits(ref.dequantize_blockwise8(q, am)))
+    assert _same(d, ref.dequantize_blockwise8(q, am))
     for w in FOLD_WEIGHTS:
         acc0 = torch.from_numpy(fold_accumulator(q.shape[0])).to(cuda)
         k = ops.dequant_accumulate8_into(acc0.clone(), q, am, w)
         p = ref.dequant_accumulate8_into(acc0.clone(), q, am, w)
-        assert torch.equal(_bits(k), _bits(p)), w
+        assert _same(k, p), w
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["quantize_blockwise8"] - before["quantize_blockwise8"] == 1
@@ -87,9 +103,9 @@ def test_fourbit_kernels_bitwise_equal_plain_versions_on_the_card(cuda, name, fm
     p, am = quantize_4bit(x2d, fmt)
     p_p, am_p = ref.quantize_4bit(x2d, fmt)
     assert p.dtype == torch.uint8 and p.shape == (x2d.shape[0], ref.BLOCK4 // 2)
-    assert torch.equal(p, p_p) and torch.equal(_bits(am), _bits(am_p))
+    assert torch.equal(p, p_p) and _same(am, am_p)
     d = dequantize_4bit(p, am, fmt)
-    assert torch.equal(_bits(d), _bits(ref.dequantize_4bit(p, am, fmt)))
+    assert _same(d, ref.dequantize_4bit(p, am, fmt))
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["quantize_4bit"] - before["quantize_4bit"] == 1
@@ -109,3 +125,42 @@ def test_fourbit_kernels_cover_any_block_count(cuda, nblocks):
     assert torch.equal(p, p_p) and torch.equal(_bits(am), _bits(am_p))
     d = dequantize_4bit(p, am, "nf4")
     assert torch.equal(_bits(d), _bits(ref.dequantize_4bit(p, am, "nf4")))
+
+
+@pytest.mark.cuda
+def test_absmax_keeps_nan_and_inf_on_the_card(cuda):
+    """The ``nan_inf`` blocks: NaN absmax for a block holding NaN (all
+    blockwise8 codes 0), inf for one holding an infinity only — as the
+    reference gives them."""
+    x = torch.from_numpy(CASES["nan_inf"]).to(cuda)
+    q, am = quantize_blockwise8(ops.pad_to_blocks(x))
+    assert torch.isnan(am[[0, 3]]).all() and torch.isinf(am[[1, 2]]).all()
+    assert torch.isfinite(am[4]) and (q[[0, 3]] == 0).all()
+    _p, am4 = quantize_4bit(ops.pad_to_blocks(torch.from_numpy(CASES4["nan_inf"]).to(cuda),
+                                              ref.BLOCK4), "nf4")
+    assert torch.isnan(am4[[0, 3]]).all() and torch.isinf(am4[[1, 2]]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ATTENTION_CASES))
+def test_flash_kernel_matches_its_plain_version_on_the_card(cuda, name):
+    c = attention_case(name)
+    dtype = getattr(torch, c["dtype"])
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in attention_inputs(name))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=c["causal"], window=c["window"])
+    want = ref.attention(q, k, v, causal=c["causal"], window=c["window"])
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    atol, rtol = ATTENTION_TOL[c["dtype"]]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_forward_only_on_the_card(cuda):
+    q, k, v = (torch.from_numpy(a).to(cuda).requires_grad_(True)
+               for a in attention_inputs("group2"))
+    out = flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()

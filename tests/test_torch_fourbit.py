@@ -30,6 +30,16 @@ def _bits(a) -> np.ndarray:
     return np.asarray(a).view(np.int32)
 
 
+def _assert_same(got, want) -> None:
+    """Bitwise equal, with NaN in the same places (``equal_nan``): a NaN's
+    sign and payload are not compared — the reference's ``0 * inf`` gives
+    x86's negative default NaN where PyTorch's may give a positive one."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(want))
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
 def _reference_quantize(x: np.ndarray, fmt: str, backend: str = "ref"):
     with ref_ops.backend(backend):
         p, am = ref_ops.quantize_4bit(jnp.asarray(x), fmt)
@@ -59,7 +69,7 @@ def test_quantize_4bit_bitwise_equals_reference(name, fmt):
     p, am = ops.quantize_4bit(torch.from_numpy(x), fmt)
     assert p.dtype == torch.uint8 and p.shape == p_ref.shape
     np.testing.assert_array_equal(p.numpy(), p_ref)
-    np.testing.assert_array_equal(_bits(am.numpy()), _bits(am_ref))
+    _assert_same(am.numpy(), am_ref)
 
 
 @pytest.mark.parametrize("fmt", FMTS)
@@ -73,7 +83,7 @@ def test_dequantize_4bit_bitwise_equals_reference(name, fmt):
     out = ops.dequantize_4bit(torch.from_numpy(p_ref), torch.from_numpy(am_ref), fmt,
                               x.shape, torch.float32)
     assert out.shape == x.shape
-    np.testing.assert_array_equal(_bits(out.numpy()), _bits(out_ref))
+    _assert_same(out.numpy(), out_ref)
 
 
 @pytest.mark.parametrize("fmt", FMTS)
@@ -86,7 +96,21 @@ def test_quantize_4bit_bitwise_equals_pallas_interpret(fmt):
     p_ref, am_ref = _reference_quantize(x, fmt, backend="pallas_interpret")
     p, am = ops.quantize_4bit(torch.from_numpy(x), fmt)
     np.testing.assert_array_equal(p.numpy(), p_ref)
-    np.testing.assert_array_equal(_bits(am.numpy()), _bits(am_ref))
+    _assert_same(am.numpy(), am_ref)
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+def test_plain_versions_keep_nan_and_inf_in_absmax(fmt):
+    """The ``nan_inf`` case is a real check: a block holding NaN has absmax
+    NaN (so inv 0), one holding an infinity absmax inf, and the finite
+    block after them is untouched — what the reference gives
+    (``test_quantize_4bit_bitwise_equals_reference[nan_inf]``)."""
+    x2d = torch.from_numpy(CASES["nan_inf"]).reshape(-1, ref.BLOCK4)
+    p, am = ref.quantize_4bit(x2d, fmt)
+    assert torch.isnan(am[[0, 3]]).all() and torch.isinf(am[[1, 2]]).all()
+    assert am[4] == x2d[4].abs().max()
+    d = ref.dequantize_4bit(p, am, fmt)
+    assert torch.isnan(d[[0, 3]]).all() and torch.isfinite(d[4]).all()
 
 
 @pytest.mark.parametrize("fmt", FMTS)
@@ -167,6 +191,6 @@ def test_quantize_batch_is_one_fused_group_per_format(fmt, monkeypatch):
         assert isinstance(qt.payload, np.ndarray) and qt.payload.dtype == np.uint8
         p_ref, am_ref = _reference_quantize(items[name], fmt)
         np.testing.assert_array_equal(qt.payload, p_ref)
-        np.testing.assert_array_equal(_bits(qt.absmax), _bits(am_ref))
+        _assert_same(qt.absmax, am_ref)
         back = Q.dequantize(qt, "cpu")
         assert back.shape == items[name].shape and back.dtype == torch.float32

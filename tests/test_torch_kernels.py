@@ -32,6 +32,16 @@ def _bits(a) -> np.ndarray:
     return np.asarray(a).view(np.int32)
 
 
+def _assert_same(got, want) -> None:
+    """Bitwise equal, with NaN in the same places (``equal_nan``): a NaN's
+    sign and payload are not compared — the reference's ``0 * inf`` gives
+    x86's negative default NaN where PyTorch's may give a positive one."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(want))
+    np.testing.assert_array_equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
 def _reference_quantize(x: np.ndarray):
     with ref_ops.backend("ref"):
         q, am = ref_ops.quantize_blockwise8(jnp.asarray(x))
@@ -44,7 +54,7 @@ def test_quantize_bitwise_equals_reference(name):
     q_ref, am_ref = _reference_quantize(x)
     q, am = ops.quantize_blockwise8(torch.from_numpy(x))
     np.testing.assert_array_equal(q.numpy(), q_ref)
-    np.testing.assert_array_equal(_bits(am.numpy()), _bits(am_ref))
+    _assert_same(am.numpy(), am_ref)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -56,7 +66,7 @@ def test_dequantize_bitwise_equals_reference(name):
                                                 x.shape, np.float32)
     out = ops.dequantize_blockwise8(torch.from_numpy(q_ref), torch.from_numpy(am_ref),
                                     x.shape, torch.float32)
-    np.testing.assert_array_equal(_bits(out.numpy()), _bits(out_ref))
+    _assert_same(out.numpy(), out_ref)
 
 
 @pytest.mark.parametrize("fresh", [False, True], ids=["into_acc", "acc_none"])
@@ -74,7 +84,7 @@ def test_fold_bitwise_equals_reference(name, weight, fresh):
                                        torch.from_numpy(am_ref), weight)
     if acc is not None:
         assert out is acc, "the fold must update the caller's accumulator in place"
-    np.testing.assert_array_equal(_bits(out.numpy()), _bits(out_ref))
+    _assert_same(out.numpy(), out_ref)
 
 
 @pytest.mark.parametrize("weight", FOLD_WEIGHTS)
@@ -88,7 +98,7 @@ def test_fold_into_subnormal_accumulator_bitwise_equals_reference(weight):
             jnp.asarray(acc0.copy()), jnp.asarray(q_ref), jnp.asarray(am_ref), weight)
     out = ops.dequant_accumulate8_into(torch.from_numpy(acc0.copy()), torch.from_numpy(q_ref),
                                        torch.from_numpy(am_ref), weight)
-    np.testing.assert_array_equal(_bits(out.numpy()), _bits(out_ref))
+    _assert_same(out.numpy(), out_ref)
 
 
 def test_plain_versions_flush_subnormals():
@@ -104,6 +114,19 @@ def test_plain_versions_flush_subnormals():
     kept = q[2].float() * (am[2] * ref.INV127)
     assert (kept.abs() < ref.FLT_MIN).any() and (kept != 0).any()
     assert bool((d[2].abs() >= ref.FLT_MIN).logical_or(d[2] == 0).all())
+
+
+def test_plain_versions_keep_nan_and_inf_in_absmax():
+    """The ``nan_inf`` case is a real check: a block holding NaN has absmax
+    NaN and all-zero codes, one holding an infinity absmax inf, and the
+    finite block after them is untouched — what the reference gives
+    (``test_quantize_bitwise_equals_reference[nan_inf]``)."""
+    x2d = torch.from_numpy(CASES["nan_inf"]).reshape(-1, ref.BLOCK8)
+    q, am = ref.quantize_blockwise8(x2d)
+    assert torch.isnan(am[[0, 3]]).all() and torch.isinf(am[[1, 2]]).all()
+    assert (q[:4] == 0).all() and am[4] == x2d[4].abs().max()
+    d = ref.dequantize_blockwise8(q, am)
+    assert torch.isnan(d[:4]).all() and torch.isfinite(d[4]).all()
 
 
 def test_plain_fold_reproduces_fma_not_unfused_arithmetic():
@@ -155,14 +178,15 @@ def test_kernels_build_from_the_repo_source():
     ``csrc/`` in this repo with the Hopper target and without fast math,
     and each C entry point the wrappers bind is defined in one of them."""
     names = [p.name for p in _build.SOURCES]
-    assert names == ["blockwise8.cu", "fourbit.cu"], names
+    assert names == ["blockwise8.cu", "flash_attention.cu", "fourbit.cu"], names
     assert all(p.parent.name == "csrc" and p.is_file() for p in _build.SOURCES)
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert "fast_math" not in flags and "fast-math" not in flags and "-ftz" not in flags
     src = "".join(p.read_text() for p in _build.SOURCES)
     assert set(_build._SIGNATURES) == {"bw8_quantize", "bw8_dequantize", "bw8_fold",
-                                       "fb4_quantize", "fb4_dequantize"}
+                                       "fb4_quantize", "fb4_dequantize",
+                                       "flash_attention_fwd"}
     for entry in _build._SIGNATURES:
         assert f"int {entry}(" in src, entry
 

@@ -68,6 +68,7 @@ def test_entry_point_imports_with_jax_and_reference_blocked():
         import repro_torch.fl.job
         import repro_torch.core.pipeline
         import repro_torch.kernels.ops
+        import repro_torch.launch.serve
         import chip_smoke
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not leaked, leaked
@@ -93,6 +94,26 @@ def test_run_job_without_device_raises_on_a_cpu_only_host():
 
 
 def test_kernel_wrappers_have_no_fallback_handlers():
-    for name in ("quant_blockwise8.py", "quant_nf4.py", "fused_dequant_agg.py", "ops.py"):
+    for name in ("quant_blockwise8.py", "quant_nf4.py", "fused_dequant_agg.py",
+                 "flash_attention.py", "ops.py"):
         src = (PORT / "kernels" / name).read_text()
         assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE), name
+
+
+def test_sdpa_or_flash_on_cpu_tensors_never_launches():
+    """On CPU tensors the model's attention takes the masked softmax at any
+    length, multiples of 128 included, and counts no launch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cfg = get_smoke_config("llama3.2-1b")
+    hd = cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(0)
+    ops.reset_launch_counts()
+    for s, window in ((128, None), (256, 64), (100, None)):
+        q = torch.randn((1, s, cfg.num_heads, hd), generator=gen)
+        k = torch.randn((1, s, cfg.num_kv_heads, hd), generator=gen)
+        v = torch.randn((1, s, cfg.num_kv_heads, hd), generator=gen)
+        out = L.sdpa_or_flash(q, k, v, cfg, causal=True, window=window)
+        assert tuple(out.shape) == (1, s, cfg.num_heads * hd)
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
