@@ -34,6 +34,20 @@ each with the counters zeroed before and exactly one flash launch per
 layer of the prefill after; smoke-width serving on the card against the
 CPU; and a backward through the kernel, which must raise.
 
+Then the mesh-view federated trainer (``repro_torch.launch.fl_train``): the
+K-way dequantize-and-sum kernel against its plain version on every case of
+``kernels.cases.agg_cases`` and at the collective's full shape (2 pods x the
+flat full-width qwen1.5-0.5b delta), timed beside a one-call einsum; then
+two ranks over gloo, both on this card, each take one full-width
+qwen1.5-0.5b round with ``--agg int8``, one with ``--agg int8-bucket``
+and one more with ``--agg int8`` (warm: the first run also pays one-time
+costs), all from the same seeded weights, the launch counters zeroed
+just before each round and read just after in each rank; the ranks must
+end bitwise equal,
+and on each rank's own delta the bucketed collective must equal the
+unbucketed one bitwise; last, a smoke-width ``int8`` round on the card
+against the same round on the CPU.
+
 Output: the card, build and per-kernel lines, per-phase wall times, then
 the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits non-zero (and
@@ -95,6 +109,21 @@ SERVE_RUNS = (("serve_full", None, 4, 512, 16), ("serve_window", 4096, 1, 8192, 
 #: within 1e-4 (fp32 matrix products and attention summed in other orders)
 SERVE_CPU_TOL = 1e-4
 
+#: the federated trainer's runs: full-width qwen1.5-0.5b (fl_train's own
+#: default arch), 2 pods on one card over gloo, the reference's defaults of
+#: 2 local steps at batch 4 x seq 64 and lr 1e-3, 1 round (of its 5) per
+#: aggregation; seed 1, whose Dirichlet partition gives the pods different
+#: data (seed 0 gives both the same)
+FL_ARGS = {"arch": "qwen1.5-0.5b", "smoke": False, "rounds": 1, "local_steps": 2,
+           "batch": 4, "seq": 64, "pods": 2, "lr": 1e-3, "alpha": 0.5, "seed": 1,
+           "device": "cuda", "backend": "gloo"}
+#: (label, --agg): the first run of a rank also pays its one-time costs
+#: (cuBLAS handles, the allocator's first blocks), so int8 runs again last
+FL_RUNS = (("fl_int8", "int8"), ("fl_int8_bucket", "int8-bucket"), ("fl_int8_warm", "int8"))
+FL_SPANS = ("fl.round", "fl.local_train", "coll.quantize", "coll.all_gather",
+            "kernel.dequant_accumulate8")
+AGG_CHUNK_BLOCKS = 1 << 15         # blocks per plain-version call of the K-way sum
+
 BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
 FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -110,6 +139,8 @@ KERNELS = {
     "quantize_4bit": (FB4_SOURCE, "src/repro/kernels/quant_nf4.py:86", "nf4"),
     "dequantize_4bit": (FB4_SOURCE, "src/repro/kernels/quant_nf4.py:112", "nf4"),
     "flash_attention": (FA_SOURCE, "src/repro/kernels/flash_attention.py:103", "serve_full"),
+    "dequant_accumulate8": (BW8_SOURCE, "src/repro/kernels/fused_dequant_agg.py:44",
+                            "fl_int8"),
 }
 
 
@@ -964,6 +995,260 @@ def check_forward_only(torch, dev) -> None:
         fail("a backward through the flash kernel did not raise")
 
 
+def fl_flat_size() -> int:
+    """Elements of full-width qwen1.5-0.5b's flat delta (every parameter,
+    the QKV biases included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+    return sum(math.prod(s) for s in DecoderLM(get_config(FL_ARGS["arch"])).param_shapes().values())
+
+
+def check_agg_kernel(torch, dev) -> dict:
+    """The K-way dequantize-and-sum kernel against its plain version on the
+    card, bitwise (NaN in the same places): every case of
+    ``kernels.cases.agg_cases``, then the collective's full shape — 2 pods
+    of the flat full-width delta, weights 1/2 — compared in chunks of
+    blocks (the plain version's float64 temporaries). Timed there: the
+    kernel, the plain version over the same chunks, and one
+    ``torch.einsum("kbe,kb->be", qs.float(), s)``. The bound is the bytes:
+    K codes and 4 output bytes per element, 4 K bytes of absmax per block."""
+    from repro_torch.kernels import cases, ref
+    from repro_torch.kernels.fused_dequant_agg import dequant_accumulate8
+
+    edge = cases.agg_cases()
+    for name, arrays in edge.items():
+        qs, am, w = (torch.from_numpy(a).to(dev) for a in arrays)
+        if not same_bits(torch, dequant_accumulate8(qs, am, w), ref.dequant_accumulate8(qs, am, w)):
+            fail(f"K-way sum kernel disagrees with its plain version on {name}")
+    print(f"K-way sum kernel agrees bitwise with its plain version on {len(edge)} edge cases "
+          "(K = 1 to 16, NaN in the same places)")
+
+    n = fl_flat_size()
+    pods, nblocks = FL_ARGS["pods"], math.ceil(n / ref.BLOCK8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    qs = torch.randint(-127, 128, (pods, nblocks, ref.BLOCK8), generator=gen, device=dev,
+                       dtype=torch.int8)
+    am = 10.0 ** (torch.rand((pods, nblocks), generator=gen, device=dev) * 3 - 4)
+    w = torch.full((pods,), 1.0 / pods, dtype=torch.float32, device=dev)
+    out = dequant_accumulate8(qs, am, w)
+
+    def plain():
+        res = torch.empty((nblocks, ref.BLOCK8), dtype=torch.float32, device=dev)
+        for b in range(0, nblocks, AGG_CHUNK_BLOCKS):
+            res[b:b + AGG_CHUNK_BLOCKS] = ref.dequant_accumulate8(
+                qs[:, b:b + AGG_CHUNK_BLOCKS], am[:, b:b + AGG_CHUNK_BLOCKS], w)
+        return res
+
+    want = plain()
+    if not same_bits(torch, out, want):
+        fail("K-way sum kernel disagrees with its plain version at the full shape")
+    err = float((out - want).abs().max())
+    del out, want
+    release(torch)
+    print(f"K-way sum kernel agrees bitwise with its plain version at the full shape "
+          f"({pods} pods x {nblocks} blocks: the flat delta of {n} elements, padded)")
+    s = am * (w * ref.INV127)[:, None]
+    elems = nblocks * ref.BLOCK8
+    nbytes = pods * elems + 4 * elems + 4 * pods * nblocks
+    ms = time_ms(torch, lambda: dequant_accumulate8(qs, am, w))
+    plain_ms = time_ms(torch, plain, reps=3, warmup=1, batch=1)
+    release(torch)
+    lib_ms = time_ms(torch, lambda: torch.einsum("kbe,kb->be", qs.float(), s), reps=10,
+                     warmup=2, batch=1)
+    del qs, am, w, s
+    release(torch)
+    bound_ms, bound_by = bound(nbytes, 2 * pods * elems)
+    print(f"dequant_accumulate8: {ms:.4f} ms at {pods} x {elems} elements "
+          f"({nbytes / ms / 1e6:.1f} GB/s), bound {bound_ms:.4f} ms by {bound_by} "
+          f"({100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms (chunks of "
+          f"{AGG_CHUNK_BLOCKS} blocks), library (einsum) {lib_ms:.4f} ms")
+    return {"pods": pods, "elements": elems, "flat_elements": n, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def span_totals(events: list[dict]) -> dict[str, float]:
+    """Seconds per span name over the device-synchronised trace, and the
+    gathered wire bytes (every ``coll.all_gather`` span's)."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    out = {name: sum(e["dur"] for e in spans if e["name"] == name) / 1e6 for name in FL_SPANS}
+    out["wire_bytes"] = sum(e["args"]["wire_bytes"] for e in spans
+                            if e["name"] == "coll.all_gather")
+    return out
+
+
+def fl_train_rank(rank: int, world: int, args) -> dict:
+    """One rank of the federated trainer (spawned by ``fl_train.launch``):
+    each full-width run of ``FL_RUNS`` with the counters zeroed just before
+    and read just after, a sha256 of the final params, and — on the first
+    int8 run — the bucketed collective against the unbucketed one on this
+    rank's own delta; then the smoke-width card-vs-CPU round. Returns
+    host data only."""
+    import argparse
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fl_train
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.utils.trees import flatten_state_dict, tree_leaves
+
+    dev = fl_train.rank_device(args.device, rank)
+    fedavg = C.quantized_fedavg_tree
+    seen = []
+
+    def keep_delta(tree, group=None, bucket_bytes=None):
+        out = fedavg(tree, group, bucket_bytes)
+        seen.append((tree, out))
+        return out
+
+    report = {}
+    for label, agg in FL_RUNS:
+        seen.clear()
+        C.quantized_fedavg_tree = keep_delta if label == "fl_int8" else fedavg
+        torch.cuda.synchronize()
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        tracer = obs_trace.Tracer(sync=torch.cuda.synchronize)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs_trace.activate(tracer):
+            out = fl_train.run(argparse.Namespace(**{**vars(args), "agg": agg}),
+                               rank=rank, world=world)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        C.quantized_fedavg_tree = fedavg
+        digest = hashlib.sha256()
+        for t in flatten_state_dict(out["params"]).values():
+            digest.update(t.detach().cpu().numpy().data)
+        finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(out["params"]))
+        rep = {"launches": launches, "history": out["history"],
+               "round_wall_s": out["round_wall_s"], "wall_s": wall,
+               "spans": span_totals(tracer.chrome_trace()["traceEvents"]),
+               "max_memory_allocated_bytes": peak, "allocated_before_bytes": before,
+               "params_sha256": digest.hexdigest(), "params_finite": finite}
+        if label == "fl_int8":
+            (delta, mean), = seen
+            bucketed = fedavg(delta, None, fl_train.BUCKET_BYTES)
+            rep["bucketed_equals_unbucketed"] = all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(tree_leaves(mean), tree_leaves(bucketed)))
+            del delta, mean, bucketed
+        seen.clear()
+        report[label] = rep
+        del out
+        release(torch)
+
+    # smoke width, one int8 round on the card and on the CPU, same weights
+    smoke = argparse.Namespace(**{**vars(args), "smoke": True, "agg": "int8"})
+    init = flatten_state_dict(DecoderLM(get_smoke_config(args.arch)).init(args.seed, "cpu"))
+    quantize, absmax = C._quantize_flat, []
+
+    def keep_absmax(flat):
+        q, am = quantize(flat)
+        absmax.append(am.cpu().numpy())
+        return q, am
+
+    C._quantize_flat = keep_absmax
+    for where in ("card", "cpu"):
+        device = str(dev) if where == "card" else "cpu"
+        out = fl_train.run(argparse.Namespace(**{**vars(smoke), "device": device}),
+                           rank=rank, world=world, init_params=init)
+        report[f"smoke_{where}"] = {
+            "history": out["history"],
+            "params": {k: v.detach().cpu().numpy() for k, v in
+                       flatten_state_dict(out["params"]).items()}}
+    C._quantize_flat = quantize
+    report["smoke_absmax"] = absmax
+    return report
+
+
+def run_fl_train(torch, n: int) -> dict:
+    """Both ranks of the federated trainer in one spawn (``fl_train.launch``),
+    then the checks on what they report: launches per rank and run (int8:
+    one quantize and one K-way sum; int8-bucket: one of each per 8 MiB
+    bucket of the ``n``-element flat delta; nothing else), the ranks'
+    params bitwise equal, bucketed == unbucketed on each rank's delta,
+    finite losses; and the smoke card-vs-CPU round within one quantization
+    step of the wire per block + 1e-5 + 1e-5 relative, losses within 1e-4
+    relative."""
+    import argparse
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fl_train
+
+    buckets = math.ceil(n / (fl_train.BUCKET_BYTES // 4))
+    want = {"int8": {"quantize_blockwise8": 1, "dequant_accumulate8": 1},
+            "int8-bucket": {"quantize_blockwise8": buckets, "dequant_accumulate8": buckets}}
+    release(torch)
+    t0 = time.perf_counter()
+    ranks = fl_train.launch(argparse.Namespace(**FL_ARGS), fl_train_rank)
+    spawn_s = time.perf_counter() - t0
+    report = {"spawn_s": spawn_s, "flat_elements": n, "buckets": buckets}
+    for label, agg in FL_RUNS:
+        expect = {name: want[agg].get(name, 0) for name in ops.KERNELS}
+        for r, rep in enumerate(ranks):
+            got = rep[label]
+            print(f"{label} rank {r} launches: {got['launches']} (expected {expect})")
+            if got["launches"] != expect:
+                fail(f"kernel launches on the {label} path, rank {r}: {got['launches']} != "
+                     f"{expect}")
+            if not (got["params_finite"] and all(math.isfinite(x) for x in got["history"])):
+                fail(f"{label} rank {r}: loss {got['history']} or params not finite")
+            sp = got["spans"]
+            print(f"{label} rank {r}: loss {got['history']}, round wall "
+                  f"{got['round_wall_s'][0]:.3f} s; spans (s): " +
+                  ", ".join(f"{k}={sp[k]:.4f}" for k in FL_SPANS) +
+                  f"; wire bytes gathered {sp['wire_bytes']}; max_memory_allocated "
+                  f"{got['max_memory_allocated_bytes']} bytes ({got['allocated_before_bytes']} "
+                  "before)")
+        if ranks[0][label]["params_sha256"] != ranks[1][label]["params_sha256"]:
+            fail(f"{label}: the ranks' params differ after the round")
+        print(f"{label}: both ranks' params bitwise equal (sha256 "
+              f"{ranks[0][label]['params_sha256'][:16]})")
+        report[label] = {"ranks": [{k: v for k, v in rep[label].items()} for rep in ranks],
+                         "launches": {name: sum(rep[label]["launches"][name] for rep in ranks)
+                                      for name in ops.KERNELS}}
+    for r, rep in enumerate(ranks):
+        if not rep["fl_int8"]["bucketed_equals_unbucketed"]:
+            fail(f"rank {r}: the bucketed collective differs from the unbucketed one on its "
+                 "delta")
+    print("on each rank's own delta, the bucketed collective (8 MiB buckets) equals the "
+          "unbucketed one bitwise")
+
+    # smoke width, card vs CPU
+    worst, rel = 0.0, 0.0
+    for r, rep in enumerate(ranks):
+        card, cpu = rep["smoke_card"], rep["smoke_cpu"]
+        absmax = np.maximum.reduce([a for other in ranks for a in other["smoke_absmax"]])
+        flat_card = np.concatenate([card["params"][k].reshape(-1) for k in sorted(card["params"])])
+        flat_cpu = np.concatenate([cpu["params"][k].reshape(-1) for k in sorted(cpu["params"])])
+        step = np.repeat(absmax.astype(np.float64) / 127.0, 4096)[:flat_cpu.size]
+        cap = step + 1e-5 + 1e-5 * np.abs(flat_cpu)
+        err = np.abs(flat_card.astype(np.float64) - flat_cpu)
+        if not (err <= cap).all():
+            fail(f"smoke fl_train rank {r}: card and CPU differ by more than one quantization "
+                 f"step (max {float((err / cap).max()):.3f} of the bound)")
+        worst = max(worst, float((err / cap).max()))
+        rel = max(rel, max(abs(a - b) / abs(b) for a, b in zip(card["history"], cpu["history"])))
+    if rel > 1e-4:
+        fail(f"smoke fl_train: losses on the card differ from the CPU by {rel:.3g} relative")
+    print(f"smoke fl_train int8 round, card vs CPU: weights within {worst:.3f} of one "
+          f"quantization step + 1e-5 + 1e-5 relative, losses within {rel:.3g} relative")
+    report["smoke_cpu_parity"] = {"worst_of_bound": worst, "loss_rel": rel}
+    for rep in ranks:
+        del rep["smoke_card"], rep["smoke_cpu"], rep["smoke_absmax"]
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -1018,6 +1303,9 @@ def main(argv=None) -> int:
              for label, window, batch, prompt, gen in SERVE_RUNS}
     serve_cpu = check_serve_against_cpu(torch, dev)
     check_forward_only(torch, dev)
+    agg = check_agg_kernel(torch, dev)
+    fl = run_fl_train(torch, agg["flat_elements"])
+    rows["dequant_accumulate8"] = agg
     windowed = flash["serve_window"]
     rows["flash_attention"] = {
         **{k: flash["serve_full"][k] for k in ("shape", "ms", "plain_ms", "library_ms",
@@ -1026,7 +1314,7 @@ def main(argv=None) -> int:
                      ["flash_attention"]},
         "cases_max_abs_err": flash["cases_max_abs_err"]}
 
-    paths = {"blockwise8": bw8, "nf4": nf4, **serve}
+    paths = {"blockwise8": bw8, "nf4": nf4, **serve, "fl_int8": fl["fl_int8"]}
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[path]["launches"][name], **rows[name]}
@@ -1039,7 +1327,8 @@ def main(argv=None) -> int:
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
                        "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
-                       "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu},
+                       "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
+                       "fl_train": fl},
                       fh, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

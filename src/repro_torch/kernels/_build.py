@@ -42,6 +42,8 @@ _SIGNATURES = {
     "bw8_quantize": [_P, _P, _P, ctypes.c_longlong, _P],
     "bw8_dequantize": [_P, _P, _P, ctypes.c_longlong, _P],
     "bw8_fold": [_P, _P, _P, ctypes.c_float, ctypes.c_longlong, _P],
+    # qs, absmax, weights, out; K, nblocks; stream
+    "bw8_agg": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     # device x, packed, absmax; count; host code, mids, perm; stream
     "fb4_quantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
     "fb4_dequantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],

@@ -38,6 +38,52 @@ def blockwise8_cases(seed: int = 1234) -> dict[str, np.ndarray]:
     return cases
 
 
+def agg_cases(seed: int = 2468) -> dict[str, tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Named inputs of the K-way dequantize-and-sum: ``(qs, absmaxes,
+    weights)`` as (K, nblocks, 4096) int8 codes in [-127, 127], (K, nblocks)
+    fp32 absmax and (K,) fp32 weights. K = 1, 2, 3, 4, 8 and 16; the
+    collective's mean (weights 1/K); weights that are 0 or do not sum to 1;
+    a ragged block count; an all-zero block (codes 0, absmax 0) in every
+    pod; subnormal absmax, weights and results; NaN and inf absmax; and
+    absmax from 1e-3 to 1e3 per block."""
+    rng = np.random.default_rng(seed)
+
+    def stack(k: int, nblocks: int, weights) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        qs = rng.integers(-127, 128, (k, nblocks, BLOCK8)).astype(np.int8)
+        absmaxes = (10.0 ** rng.uniform(-3, 3, (k, nblocks))).astype(np.float32)
+        return qs, absmaxes, np.asarray(weights, np.float32)
+
+    cases: dict[str, tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+    for k in (1, 2, 3, 4, 8, 16):
+        cases[f"mean_k{k}"] = stack(k, 8, np.full(k, 1.0 / k))
+    cases["weights_k3"] = stack(3, 8, FOLD_WEIGHTS)
+    cases["weights_k8"] = stack(8, 8, rng.uniform(0.0, 4.0, 8))
+    cases["zero_weights"] = stack(4, 8, (0.0, 0.5, 0.0, 2.0))
+    cases["ragged_13"] = stack(2, 13, (0.5, 0.5))
+    qs, am, w = stack(3, 8, (0.2, 0.3, 0.5))
+    qs[:, 5] = 0
+    am[:, 5] = 0.0
+    cases["zero_block"] = (qs, am, w)
+    # absmax subnormal (block 0), whose scale 1/127 of it is subnormal
+    # (block 1), whose products are subnormal (block 2), and a subnormal
+    # weight (pod 2) against an absmax of 1e30
+    qs, am, _w = stack(3, 8, (0.5, 0.25, 1e-40))
+    am[:, 0] = 1e-39
+    am[:, 1] = 1e-37
+    am[:, 2] = 4e-36
+    am[2, 3] = 1e30
+    cases["subnormal"] = (qs, am, np.array([0.5, 0.25, 1e-40], np.float32))
+    qs, am, w = stack(2, 8, (0.5, 0.5))
+    am[0, 0] = np.nan
+    am[1, 1] = np.inf
+    am[0, 2] = np.inf
+    am[1, 2] = np.nan
+    am[:, 3] = np.inf
+    qs[1, 1, ::7] = 0      # 0 * inf = NaN
+    cases["nan_inf"] = (qs, am, w)
+    return cases
+
+
 def nonfinite_blocks(block: int, rng: np.random.Generator) -> np.ndarray:
     """Normal blocks, each but the last holding non-finite values: one NaN;
     one +inf; one -inf; a negative NaN with both infinities; and a finite

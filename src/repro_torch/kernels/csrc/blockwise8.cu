@@ -1,19 +1,26 @@
-// Blockwise-int8 kernels for Hopper (sm_90a): quantize, dequantize and the
-// server's in-place streaming fold.
+// Blockwise-int8 kernels for Hopper (sm_90a): quantize, dequantize, the
+// server's in-place streaming fold and the K-way dequantize-and-sum of the
+// cross-pod collective.
 //
 // Replaces the Pallas TPU kernels
 //   src/repro/kernels/quant_blockwise8.py  quantize_blockwise8_pallas   (_quantize_kernel)
 //   src/repro/kernels/quant_blockwise8.py  dequantize_blockwise8_pallas (_dequantize_kernel)
 //   src/repro/kernels/fused_dequant_agg.py dequant_accumulate8_into_pallas (_fold_kernel)
+//   src/repro/kernels/fused_dequant_agg.py dequant_accumulate8_pallas   (_agg_kernel)
 //
-// All three are bound by device memory: a handful of float operations per
-// element against 5 bytes (quantize, dequantize) or 9 bytes (fold) moved per
-// element. The design therefore only has to stream memory well: one CTA of
-// 256 threads per 4096-element block, each thread moving 16 elements as four
-// 16-byte float4 accesses (four char4 for the int8 side), neighbouring
-// threads on neighbouring addresses. The per-block absmax of quantize is a
+// All four are bound by device memory: a handful of float operations per
+// element against 5 bytes (quantize, dequantize), 9 bytes (fold) or K + 4
+// bytes (K-way sum) moved per element. The design therefore only has to
+// stream memory well: one CTA of 256 threads per 4096-element block, each
+// thread moving 16 elements as four 16-byte float4 accesses (four char4 for
+// the int8 side), neighbouring threads on neighbouring addresses. The per-block absmax of quantize is a
 // warp-shuffle max followed by one shared-memory step across the 8 warps, so
 // a block is read from device memory exactly once and kept in registers.
+// The K-way sum keeps its 16 running sums per thread in registers across the
+// loop over the K pods, reads each pod's codes once, and writes the output
+// once (the TPU kernel's one-shot einsum over a (K, 8, 4096) tile becomes a
+// loop inside the CTA); the K scales of a block are formed once, into
+// shared memory.
 //
 // Numerics are pinned to the reference's live arithmetic: correctly rounded
 // division and products (__fdiv_rn / __fmul_rn), rintf (half to even), an
@@ -128,6 +135,42 @@ fold_kernel(float4* __restrict__ acc, const char4* __restrict__ q,
   }
 }
 
+// Sum over k = 0 .. K-1 of w[k] * dequant(q[k]), in order, from 0: the
+// fold's arithmetic (scale absmax * (f32(1/127) * w), one fmaf per pod)
+// with the running sum in registers. qs: (K, nblocks, 4096) int8;
+// absmax: (K, nblocks); w: (K,); dynamic shared memory: K floats.
+__global__ void __launch_bounds__(kThreads)
+agg_kernel(const char4* __restrict__ qs, const float* __restrict__ absmax,
+           const float* __restrict__ w, float4* __restrict__ out, int K,
+           long long nblocks) {
+  extern __shared__ float scale[];
+  const long long b = blockIdx.x;
+  for (int k = threadIdx.x; k < K; k += kThreads) {
+    scale[k] = ftz(__fmul_rn(ftz(absmax[k * nblocks + b]), ftz(__fmul_rn(kInv127, w[k]))));
+  }
+  __syncthreads();
+  float4 acc[kVecs];
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < K; ++k) {
+    const char4* qb = qs + (k * nblocks + b) * (kBlock / 4);
+    const float s = scale[k];
+    char4 c[kVecs];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) c[j] = qb[threadIdx.x + j * kThreads];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      acc[j].x = ftz(fmaf(static_cast<float>(c[j].x), s, acc[j].x));
+      acc[j].y = ftz(fmaf(static_cast<float>(c[j].y), s, acc[j].y));
+      acc[j].z = ftz(fmaf(static_cast<float>(c[j].z), s, acc[j].z));
+      acc[j].w = ftz(fmaf(static_cast<float>(c[j].w), s, acc[j].w));
+    }
+  }
+  float4* ob = out + b * (kBlock / 4);
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) ob[threadIdx.x + j * kThreads] = acc[j];
+}
+
 }  // namespace
 
 extern "C" {
@@ -164,6 +207,21 @@ int bw8_fold(void* acc, const void* q, const void* absmax, float w,
                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<float4*>(acc), static_cast<const char4*>(q),
         static_cast<const float*>(absmax), w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// qs: (K, nblocks, 4096) int8, absmax: (K, nblocks) f32, w: (K,) f32, all
+// on the device -> out: (nblocks, 4096) f32, written (never read)
+int bw8_agg(const void* qs, const void* absmax, const void* w, void* out,
+            long long K, long long nblocks, void* stream) {
+  if (nblocks > 0 && K > 0) {
+    agg_kernel<<<static_cast<unsigned>(nblocks), kThreads,
+                 static_cast<size_t>(K) * sizeof(float),
+                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const char4*>(qs), static_cast<const float*>(absmax),
+        static_cast<const float*>(w), static_cast<float4*>(out),
+        static_cast<int>(K), nblocks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
 """Public quantization ops: arbitrary-shape tensors in, blocked payloads out.
 
 Mirror of ``src/repro/kernels/ops.py`` for the blockwise-int8 and 4-bit
-(fp4 / nf4) paths; :data:`KERNELS` also lists the flash-attention
-wrapper (``flash_attention.py``), which the model calls directly. Dispatch is by device, not by a backend switch: a
-CUDA tensor runs the hand-written kernel, a CPU tensor its plain version
+(fp4 / nf4) paths and the K-way int8 sum of the collectives;
+:data:`KERNELS` also lists the flash-attention wrapper
+(``flash_attention.py``), which the model calls directly. Dispatch is by
+device, not by a backend switch: a CUDA tensor runs the hand-written
+kernel, a CPU tensor its plain version
 (see the wrappers in ``quant_blockwise8.py``, ``quant_nf4.py`` and
 ``fused_dequant_agg.py``). Both give the same bits. Padding here is wire
 padding only — to a whole number of 4096- or 64-element blocks; there is
@@ -27,6 +29,7 @@ KERNELS = {
     "quantize_blockwise8": quant_blockwise8.quantize_blockwise8,
     "dequantize_blockwise8": quant_blockwise8.dequantize_blockwise8,
     "dequant_accumulate8_into": fused_dequant_agg.dequant_accumulate8_into,
+    "dequant_accumulate8": fused_dequant_agg.dequant_accumulate8,
     "quantize_4bit": quant_nf4.quantize_4bit,
     "dequantize_4bit": quant_nf4.dequantize_4bit,
     "flash_attention": flash_attention.flash_attention,
@@ -92,3 +95,12 @@ def dequant_accumulate8_into(
     if acc is None:
         acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     return fused_dequant_agg.dequant_accumulate8_into(acc, q, absmax, weight)
+
+
+def dequant_accumulate8(qs: torch.Tensor, absmaxes: torch.Tensor, weights) -> torch.Tensor:
+    """Fused K-way dequantize + weighted sum of blockwise8 payloads, summed
+    in pod order: ``qs`` (K, nblocks, 4096) int8, ``absmaxes`` (K, nblocks),
+    ``weights`` K floats (a tensor, or a sequence put on ``qs``'s device)
+    -> (nblocks, 4096) fp32."""
+    weights = torch.as_tensor(weights, dtype=torch.float32, device=qs.device)
+    return fused_dequant_agg.dequant_accumulate8(qs, absmaxes, weights)

@@ -23,6 +23,14 @@ them, so :func:`ftz` makes the flush explicit:
   127 into a multiply by the rounded reciprocal.
 * fold: ``fma(q, absmax * (f32(1/127) * w), acc)`` — one rounding of the
   exact ``q * s + acc``, with the scale reassociated.
+* K-way sum: ``acc = 0``, then the fold above for ``k = 0 .. K-1`` in
+  order, with ``w_k``. That is what the reference's einsum
+  (``kbe,kb->be``) computes under ``jit``, as its collective runs it:
+  XLA rewrites ``absmax / 127 * w`` as ``absmax * (f32(1/127) * w)`` and
+  contracts over K as a chain of FMAs (probed at K = 1 to 4; evaluated
+  eagerly, the einsum divides by 127 instead, and at K = 8 XLA contracts
+  in another order — both within a few ulp, see
+  ``tests/test_torch_agg.py``).
 * 4-bit quantize: ``inv = 1/absmax`` correctly rounded (0 for an
   all-zero block), ``xn = x * inv``, ``rank = sum(xn > mid)`` over the
   15 fp32 midpoints of the sorted codebook, ``idx = perm[rank]``, and
@@ -154,6 +162,17 @@ def dequant_accumulate8_into(
                          torch.full_like(t, float("-inf")))
     t = torch.where((err != 0) & even, torch.nextafter(t, toward), t)
     acc.copy_(ftz(t.to(torch.float32)))
+    return acc
+
+
+def dequant_accumulate8(qs: torch.Tensor, absmaxes: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """qs: (K, nblocks, BLOCK8) int8, absmaxes: (K, nblocks), weights: (K,)
+    -> (nblocks, BLOCK8) fp32 = sum_k weights[k] * dequant(qs[k]): K folds,
+    in order, into a zeroed accumulator."""
+    acc = torch.zeros(qs.shape[1:], dtype=torch.float32, device=qs.device)
+    for k, w in enumerate(weights.to(torch.float32).tolist()):
+        dequant_accumulate8_into(acc, qs[k], absmaxes[k], w)
     return acc
 
 

@@ -4,18 +4,24 @@ Each kernel against its plain PyTorch version on the card, on the edge
 cases every implementation must agree on: quantize and dequantize
 bitwise, the fold bitwise (both round once: the kernel's ``fmaf`` and the
 plain version's float64 round-to-odd sum), and the 4-bit quantize and
-dequantize bitwise for nf4 and fp4 — with NaN in the same places where a
-case holds NaN (a NaN's payload bits are not compared: the card's
+dequantize bitwise for nf4 and fp4, the K-way dequantize-and-sum bitwise
+(both are K folds in order, each one rounding) — with NaN in the same
+places where a case holds NaN (a NaN's payload bits are not compared: the card's
 arithmetic returns its canonical NaN). Flash attention is held to the
 tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
 ``chip_smoke.py`` uses too), and its backward must
-raise. Imports torch and the port only, so it runs on the card machine,
+raise. Two gloo ranks on the card run the int8 collective against the
+same collective on the CPU, bitwise. Imports torch and the port only, so
+it runs on the card machine,
 which has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Elsewhere the tests skip.
 """
+import argparse
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -25,6 +31,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     ATTENTION_CASES,
     ATTENTION_TOL,
     FOLD_WEIGHTS,
+    agg_cases,
     attention_case,
     attention_inputs,
     blockwise8_cases,
@@ -42,6 +49,7 @@ from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit  # noqa
 
 CASES = blockwise8_cases()
 CASES4 = fourbit_cases()
+AGG_CASES = agg_cases()
 
 
 @pytest.fixture
@@ -164,3 +172,46 @@ def test_flash_kernel_is_forward_only_on_the_card(cuda):
     out = flash_attention(q, k, v)
     with pytest.raises(NotImplementedError, match="forward-only"):
         out.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(AGG_CASES))
+def test_agg_kernel_bitwise_equals_its_plain_version_on_the_card(cuda, name):
+    qs, am, w = (torch.from_numpy(a).to(cuda) for a in AGG_CASES[name])
+    before = ops.launch_counts()["dequant_accumulate8"]
+    out = ops.dequant_accumulate8(qs, am, w)
+    want = ref.dequant_accumulate8(qs, am, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["dequant_accumulate8"] - before == 1
+    assert out.dtype == torch.float32 and out.shape == qs.shape[1:]
+    assert _same(out, want)
+
+
+def _collective_rank(rank, world, args):
+    """The int8 collective (and its bucketed form) on the card and on the
+    CPU, through one gloo group; returns host copies and the launches."""
+    from repro_torch.core import collectives as C
+    rng = np.random.default_rng(rank)
+    x = torch.from_numpy((rng.standard_normal(5 * 4096 + 99) * 3).astype(np.float32))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ops.reset_launch_counts()
+    card = C.quantized_pod_mean(x.to(dev))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    bucket = C.bucketed_quantized_pod_mean(x.to(dev), bucket_bytes=2 * 4096 * 4)
+    cpu = C.quantized_pod_mean(x)
+    return {"card": card.cpu().numpy(), "bucket": bucket.cpu().numpy(),
+            "cpu": cpu.numpy(), "launches": launches}
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_the_cpu(cuda):
+    from repro_torch.launch import fl_train
+    args = argparse.Namespace(pods=2, device="cuda", backend="gloo")
+    ranks = fl_train.launch(args, _collective_rank)
+    for out in ranks:
+        assert out["launches"]["quantize_blockwise8"] == 1
+        assert out["launches"]["dequant_accumulate8"] == 1
+        assert out["card"].tobytes() == out["cpu"].tobytes()
+        assert out["bucket"].tobytes() == out["card"].tobytes()
+    assert ranks[0]["card"].tobytes() == ranks[1]["card"].tobytes()

@@ -185,7 +185,7 @@ def test_kernels_build_from_the_repo_source():
     assert "fast_math" not in flags and "fast-math" not in flags and "-ftz" not in flags
     src = "".join(p.read_text() for p in _build.SOURCES)
     assert set(_build._SIGNATURES) == {"bw8_quantize", "bw8_dequantize", "bw8_fold",
-                                       "fb4_quantize", "fb4_dequantize",
+                                       "bw8_agg", "fb4_quantize", "fb4_dequantize",
                                        "flash_attention_fwd"}
     for entry in _build._SIGNATURES:
         assert f"int {entry}(" in src, entry

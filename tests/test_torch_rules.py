@@ -69,6 +69,8 @@ def test_entry_point_imports_with_jax_and_reference_blocked():
         import repro_torch.core.pipeline
         import repro_torch.kernels.ops
         import repro_torch.launch.serve
+        import repro_torch.launch.fl_train
+        import repro_torch.core.collectives
         import chip_smoke
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not leaked, leaked
@@ -93,9 +95,43 @@ def test_run_job_without_device_raises_on_a_cpu_only_host():
             call()
 
 
+def test_fl_train_without_device_raises_on_a_cpu_only_host():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default would run there")
+    from repro_torch.launch import fl_train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fl_train.main(["--smoke", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fl_train.main(["--smoke", "--rounds", "1", "--backend", "gloo"])
+
+
+def test_every_launch_counter_is_listed_in_ops_kernels():
+    """Every wrapper of ``kernels/`` that counts launches (``fn.launches +=
+    1``) is listed in ``ops.KERNELS``, every listed one has an integer
+    counter, and every module that launches a kernel counts."""
+    import ast
+    import importlib
+
+    from repro_torch.kernels import ops
+    counted = []
+    for path in sorted((PORT / "kernels").glob("*.py")):
+        module = importlib.import_module(f"repro_torch.kernels.{path.stem}")
+        tree = ast.parse(path.read_text())
+        names = [ast.unparse(node.target.value) for node in ast.walk(tree)
+                 if isinstance(node, ast.AugAssign) and isinstance(node.target, ast.Attribute)
+                 and node.target.attr == "launches"]
+        launches = "_build.launch(" in path.read_text()
+        assert bool(names) == launches, path.name
+        counted += [getattr(module, name) for name in names]
+    assert len(counted) == len(ops.KERNELS) == 7, counted
+    assert {id(fn) for fn in counted} == {id(fn) for fn in ops.KERNELS.values()}
+    for name, fn in ops.KERNELS.items():
+        assert isinstance(fn.launches, int), name
+
+
 def test_kernel_wrappers_have_no_fallback_handlers():
     for name in ("quant_blockwise8.py", "quant_nf4.py", "fused_dequant_agg.py",
-                 "flash_attention.py", "ops.py"):
+                 "flash_attention.py", "ops.py", "../core/collectives.py"):
         src = (PORT / "kernels" / name).read_text()
         assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE), name
 
