@@ -48,6 +48,16 @@ and on each rank's own delta the bucketed collective must equal the
 unbucketed one bitwise; last, a smoke-width ``int8`` round on the card
 against the same round on the CPU.
 
+Then xLSTM serving (``launch.serve.generate`` on xlstm-125m): the sLSTM-scan
+kernel against its plain version (h and the final state) on every case of
+``kernels.cases.SLSTM_CASES`` and at xlstm-125m's width at batch 4 x 1024
+steps and 1 x 8192, timed at both; full-width xlstm-125m served at batch
+4, prompt 1024, 16 generated tokens, with the counters zeroed before and
+exactly one sLSTM-scan launch per sLSTM layer (6) after; smoke-width
+serving on the card against the CPU at a prompt of 200 (every prefill
+length goes through the kernel); and a backward through the kernel, which
+must raise.
+
 Output: the card, build and per-kernel lines, per-phase wall times, then
 the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits non-zero (and
@@ -120,6 +130,20 @@ FL_ARGS = {"arch": "qwen1.5-0.5b", "smoke": False, "rounds": 1, "local_steps": 2
 #: (label, --agg): the first run of a rank also pays its one-time costs
 #: (cuBLAS handles, the allocator's first blocks), so int8 runs again last
 FL_RUNS = (("fl_int8", "int8"), ("fl_int8_bucket", "int8-bucket"), ("fl_int8_warm", "int8"))
+#: the xLSTM serving run: full-width xlstm-125m (the model B8 exists for),
+#: batch 4, a prompt of 1024 (a multiple of the reference's 256-step chunk,
+#: which the prefill routes on), 16 generated tokens
+SERVE_XLSTM = ("serve_xlstm", 4, 1024, 16)
+#: the sLSTM scan at its two full-width shapes: (label, batch, steps);
+#: heads 4 x 192 (xlstm-125m's)
+SLSTM_SHAPES = (("serve_xlstm", 4, 1024), ("long_prompt", 1, 8192))
+#: card (kernel) vs CPU (plain version) xLSTM serving at smoke width, at a
+#: prompt that is no multiple of the reference's chunk of 256: logits
+#: within 1e-4 * (1 + |want|); each cache leaf within 1e-4 * (|want| + its
+#: largest |want|) — the leaves span ten decades (mLSTM C ~1e-5, sLSTM n
+#: ~1) and both sides sum their fp32 products in other orders
+XLSTM_CPU_TOL = 1e-4
+XLSTM_CPU_PROMPT = 200
 FL_SPANS = ("fl.round", "fl.local_train", "coll.quantize", "coll.all_gather",
             "kernel.dequant_accumulate8")
 AGG_CHUNK_BLOCKS = 1 << 15         # blocks per plain-version call of the K-way sum
@@ -127,6 +151,7 @@ AGG_CHUNK_BLOCKS = 1 << 15         # blocks per plain-version call of the K-way 
 BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
 FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SLSTM_SOURCE = "src/repro_torch/kernels/csrc/slstm_scan.cu"
 #: kernel wrapper -> (CUDA source, the TPU kernel's pl.pallas_call it
 #: replaces, the main path whose launches it reports)
 KERNELS = {
@@ -141,6 +166,7 @@ KERNELS = {
     "flash_attention": (FA_SOURCE, "src/repro/kernels/flash_attention.py:103", "serve_full"),
     "dequant_accumulate8": (BW8_SOURCE, "src/repro/kernels/fused_dequant_agg.py:44",
                             "fl_int8"),
+    "slstm_scan": (SLSTM_SOURCE, "src/repro/kernels/slstm_scan.py:99", "serve_xlstm"),
 }
 
 
@@ -995,6 +1021,237 @@ def check_forward_only(torch, dev) -> None:
         fail("a backward through the flash kernel did not raise")
 
 
+def slstm_bound(B: int, S: int, H: int, hd: int, gx_bytes: int = 4) -> tuple[float, str]:
+    """The sLSTM scan's least time: gx read once, h written once, r read
+    once, the final state written once; 2 operations per multiply-add of
+    the per-head (hd) x (hd, 4 hd) product each step."""
+    D = H * hd
+    nbytes = gx_bytes * B * S * 4 * D + 4 * B * S * D + 4 * 4 * H * hd * hd + 4 * 4 * B * D
+    return bound(nbytes, 2 * B * S * 4 * H * hd * hd)
+
+
+def slstm_err(torch, got, want) -> tuple[bool, float]:
+    """Within ``SLSTM_TOL`` of the plain version (h and the four state
+    tensors), and the largest |err|."""
+    from repro_torch.kernels.cases import SLSTM_TOL
+
+    atol, rtol = SLSTM_TOL
+    ok, err = True, 0.0
+    for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+        ok = ok and bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+        err = max(err, float((a - b).abs().max()))
+    return ok, err
+
+
+def check_slstm_kernel(torch, dev) -> dict:
+    """The sLSTM-scan kernel against its plain version on the card, h and
+    the final state within ``kernels.cases.SLSTM_TOL``: every case of
+    ``SLSTM_CASES``, then xlstm-125m's width (4 heads of 192) at batch 4 x
+    1024 steps (serve_xlstm's prefill) and 1 x 8192 (a long prompt), from
+    seeded inputs (gx standard normal, r normal * 0.05). At both shapes it
+    times the kernel and the plain version; no single PyTorch call
+    computes this recurrence (``torch.nn.LSTM`` is another cell), so there
+    is no library time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cases import SLSTM_CASES, slstm_case, slstm_inputs
+    from repro_torch.kernels.slstm_scan import slstm_scan
+
+    worst = 0.0
+    for name in sorted(SLSTM_CASES):
+        c = slstm_case(name)
+        gx, r = (torch.from_numpy(a).to(dev) for a in slstm_inputs(name))
+        gx = gx.to(getattr(torch, c["dtype"]))
+        ok, err = slstm_err(torch, slstm_scan(gx, r, num_heads=c["H"], chunk=c["chunk"]),
+                            ref.slstm_scan(gx, r, c["H"]))
+        if not ok:
+            fail(f"sLSTM kernel outside SLSTM_TOL of its plain version on {name}: max |err| "
+                 f"{err:.3g}")
+        worst = max(worst, err)
+    print(f"sLSTM kernel within SLSTM_TOL of its plain version on {len(SLSTM_CASES)} cases "
+          f"(h and final state): max |err| {worst:.3g}")
+
+    shapes = {}
+    H, hd = 4, 192
+    for label, B, S in SLSTM_SHAPES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(S)
+        gx = torch.randn((B, S, 4, H * hd), generator=gen, device=dev)
+        r = torch.randn((4, H, hd, hd), generator=gen, device=dev) * 0.05
+        ok, err = slstm_err(torch, slstm_scan(gx, r, num_heads=H), ref.slstm_scan(gx, r, H))
+        if not ok:
+            fail(f"sLSTM kernel outside SLSTM_TOL at the {label} shape: max |err| {err:.3g}")
+        release(torch)
+        bound_ms, bound_by = slstm_bound(B, S, H, hd)
+        ms = time_ms(torch, lambda: slstm_scan(gx, r, num_heads=H), reps=10, warmup=2,
+                     batch=5 if S <= 1024 else 2)
+        plain_ms = time_ms(torch, lambda: ref.slstm_scan(gx, r, H), reps=3, warmup=1, batch=1)
+        shapes[label] = {"shape": [B, S, H, hd], "ms": ms, "us_per_step": 1e3 * ms / S,
+                         "plain_ms": plain_ms, "plain_us_per_step": 1e3 * plain_ms / S,
+                         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "max_abs_err": err}
+        print(f"slstm_scan ({label} shape {B}x{S}, {H} heads of {hd}): {ms:.4f} ms "
+              f"({1e3 * ms / S:.3f} us a step), bound {bound_ms:.4f} ms by {bound_by} "
+              f"({100 * bound_ms / ms:.2f}% of it), plain {plain_ms:.2f} ms "
+              f"({1e3 * plain_ms / S:.1f} us a step), library n/a, max |err| {err:.3g}")
+        del gx, r
+        release(torch)
+    return {"cases_max_abs_err": worst, **shapes}
+
+
+def run_serve_xlstm(torch, dev, label: str, batch: int, prompt: int, gen: int) -> dict:
+    """Full-width xlstm-125m with seeded weights served through ``generate``
+    twice — the first call also pays one-time costs (cuBLAS plans, first
+    use of each kernel), the second is warm — each with the launch
+    counters zeroed just before and read just after: exactly one
+    sLSTM-scan launch per sLSTM layer (the prefill's; decode steps run
+    the cell) and none of any other kernel. The warm call's numbers are
+    the run's; the trace span ``kernel.slstm_scan`` gives the kernel's
+    share of the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.obs import trace as obs_trace
+
+    cfg = get_config("xlstm-125m").with_overrides(remat=False)
+    model = create_model(cfg)
+    params = model.init(0, dev)
+    n_params = sum(math.prod(s) for s in model.param_shapes().values())
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    want = {name: 0 for name in ops.KERNELS}
+    want["slstm_scan"] = model.n_super
+    runs = {}
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        allocated_before = torch.cuda.memory_allocated()
+        tracer = obs_trace.Tracer(sync=torch.cuda.synchronize)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with obs_trace.activate(tracer):
+            tokens = generate(model, params, prompts, gen_len=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        print(f"{label} ({run}) launches: {launches} (expected {want})")
+        if launches != want:
+            fail(f"kernel launches on the {label} path ({run}) {launches} != {want}")
+        events = tracer.chrome_trace()["traceEvents"]
+        runs[run] = {"wall_s": wall, **serve_phases(events),
+                     "slstm_scan_s": sum(e["dur"] for e in events if e.get("ph") == "X"
+                                         and e["name"] == "kernel.slstm_scan") / 1e6,
+                     "launches": launches, "max_memory_allocated_bytes":
+                     torch.cuda.max_memory_allocated(), "allocated_before_bytes":
+                     allocated_before}
+    if tuple(tokens.shape) != (batch, prompt + gen) or tokens.dtype != torch.int32:
+        fail(f"{label}: tokens {tuple(tokens.shape)} {tokens.dtype}, expected "
+             f"({batch}, {prompt + gen}) int32")
+    if not (torch.equal(tokens[:, :prompt], prompts) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size):
+        fail(f"{label}: tokens do not extend the prompts within the vocabulary")
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, prompts)
+    leaves = [t for block in cache.values() for t in block.values()]
+    if not (tuple(logits.shape) == (batch, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())
+            and all(bool(torch.isfinite(t).all()) for t in leaves)):
+        fail(f"{label}: prefill logits {tuple(logits.shape)} or state not finite")
+    del logits, cache, leaves
+    release(torch)
+
+    decode_steps = gen - 1
+    for run in runs.values():
+        run["decode_ms_per_token"] = 1e3 * run["decode_s"] / max(decode_steps, 1)
+        run["tokens_per_s"] = batch * gen / run["wall_s"]
+        run["slstm_share_of_prefill"] = run["slstm_scan_s"] / run["prefill_s"]
+    report = {"batch": batch, "prompt": prompt, "gen": gen, "params": n_params,
+              **runs["warm"], "cold": runs["cold"], "last_tokens": tokens[0, -gen:].tolist()}
+    for run, r in runs.items():
+        print(f"{label} ({run}): xlstm-125m ({n_params} params), batch {batch}, prompt "
+              f"{prompt}, gen {gen}: wall {r['wall_s']:.4f} s, prefill {r['prefill_s']:.4f} s "
+              f"(sLSTM kernel {r['slstm_scan_s']:.4f} s, "
+              f"{100 * r['slstm_share_of_prefill']:.1f}%), decode "
+              f"{r['decode_ms_per_token']:.3f} ms/token ({decode_steps} steps), "
+              f"{r['tokens_per_s']:.2f} generated tokens/s; max_memory_allocated "
+              f"{r['max_memory_allocated_bytes']} bytes ({r['allocated_before_bytes']} before)")
+    print(f"{label}: tokens[0, -{gen}:]: {report['last_tokens']}")
+    del model, params, prompts, tokens
+    release(torch)
+    return report
+
+
+def check_xlstm_serve_against_cpu(torch, dev) -> dict:
+    """Smoke-width xlstm-125m served with the same weights on the card (the
+    prefill's sLSTM through the kernel, at a prompt of 200, no multiple of
+    the reference's chunk of 256) and on the CPU (the plain version):
+    prefill logits and every cache leaf within
+    ``XLSTM_CPU_TOL`` as stated there; greedy tokens equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.utils.trees import flatten_state_dict, unflatten_state_dict
+
+    cfg = get_smoke_config("xlstm-125m").with_overrides(remat=False)
+    model = create_model(cfg)
+    cpu_params = model.init(0, "cpu")
+    card_params = unflatten_state_dict(
+        {k: v.to(dev) for k, v in flatten_state_dict(cpu_params).items()})
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, XLSTM_CPU_PROMPT)).astype(np.int32))
+    outs = {}
+    ops.reset_launch_counts()
+    for where, d, params in (("cpu", "cpu", cpu_params), ("card", dev, card_params)):
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, prompts.to(d))
+        tokens = generate(model, params, prompts.to(d), gen_len=8)
+        outs[where] = (logits.cpu(), {f"{b}.{k}": v.cpu() for b, leaves in cache.items()
+                                      for k, v in leaves.items()}, tokens.cpu())
+    launches = ops.launch_counts()["slstm_scan"]
+    if launches != 2 * model.n_super:
+        fail(f"smoke xLSTM serving on the card launched the sLSTM kernel {launches} times, "
+             f"expected {2 * model.n_super} (two prefills)")
+    got, want = outs["card"][0], outs["cpu"][0]
+    logits_err, worst = float((got - want).abs().max()), 0.0
+    if not bool(((got - want).abs() <= XLSTM_CPU_TOL * (1 + want.abs())).all()):
+        fail(f"smoke xLSTM serving: card and CPU prefill logits differ by {logits_err:.3g}")
+    for name, want in outs["cpu"][1].items():
+        got = outs["card"][1][name]
+        cap = XLSTM_CPU_TOL * (want.abs() + want.abs().max())
+        if tuple(got.shape) != tuple(want.shape) or not bool(((got - want).abs() <= cap).all()):
+            fail(f"smoke xLSTM serving: card and CPU cache {name} differ by "
+                 f"{float((got - want).abs().max()):.3g}")
+        worst = max(worst, float(((got - want).abs() / cap.clamp_min(1e-30)).max()))
+    if not torch.equal(outs["card"][2], outs["cpu"][2]):
+        fail("smoke xLSTM serving: greedy tokens differ between card and CPU")
+    tokens = outs["cpu"][2][0, -8:].tolist()
+    print(f"smoke xLSTM serving card vs CPU, prompt {XLSTM_CPU_PROMPT}: prefill logits within "
+          f"{logits_err:.3g}, cache leaves within {worst:.3g} of their XLSTM_CPU_TOL bound, "
+          f"greedy tokens equal ({tokens})")
+    return {"logits_max_abs_err": logits_err, "cache_worst_of_bound": worst,
+            "tokens": tokens}
+
+
+def check_slstm_forward_only(torch, dev) -> None:
+    """A backward through the sLSTM kernel must raise NotImplementedError,
+    as the reference's kernel has no gradient."""
+    from repro_torch.kernels.cases import slstm_inputs
+    from repro_torch.kernels.slstm_scan import slstm_scan
+
+    gx, r = (torch.from_numpy(a).to(dev).requires_grad_(True)
+             for a in slstm_inputs("b2_s32_c8"))
+    h, _state = slstm_scan(gx, r, num_heads=4, chunk=8)
+    try:
+        h.sum().backward()
+    except NotImplementedError as exc:
+        print(f"sLSTM kernel backward raises NotImplementedError: {exc}")
+    else:
+        fail("a backward through the sLSTM kernel did not raise")
+
+
 def fl_flat_size() -> int:
     """Elements of full-width qwen1.5-0.5b's flat delta (every parameter,
     the QKV biases included)."""
@@ -1305,6 +1562,17 @@ def main(argv=None) -> int:
     check_forward_only(torch, dev)
     agg = check_agg_kernel(torch, dev)
     fl = run_fl_train(torch, agg["flat_elements"])
+
+    slstm = check_slstm_kernel(torch, dev)
+    label, batch, prompt, gen = SERVE_XLSTM
+    serve_xlstm = run_serve_xlstm(torch, dev, label, batch, prompt, gen)
+    xlstm_cpu = check_xlstm_serve_against_cpu(torch, dev)
+    check_slstm_forward_only(torch, dev)
+    rows["slstm_scan"] = {
+        **{k: slstm["serve_xlstm"][k] for k in ("shape", "ms", "us_per_step", "plain_ms",
+                                                 "library_ms", "bound_ms", "bound_by",
+                                                 "max_abs_err")},
+        "long_prompt": slstm["long_prompt"], "cases_max_abs_err": slstm["cases_max_abs_err"]}
     rows["dequant_accumulate8"] = agg
     windowed = flash["serve_window"]
     rows["flash_attention"] = {
@@ -1314,7 +1582,8 @@ def main(argv=None) -> int:
                      ["flash_attention"]},
         "cases_max_abs_err": flash["cases_max_abs_err"]}
 
-    paths = {"blockwise8": bw8, "nf4": nf4, **serve, "fl_int8": fl["fl_int8"]}
+    paths = {"blockwise8": bw8, "nf4": nf4, **serve, "fl_int8": fl["fl_int8"],
+             "serve_xlstm": serve_xlstm}
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[path]["launches"][name], **rows[name]}
@@ -1328,7 +1597,8 @@ def main(argv=None) -> int:
                        "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
                        "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
                        "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
-                       "fl_train": fl},
+                       "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,
+                       "serve_xlstm_cpu_parity": xlstm_cpu},
                       fh, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

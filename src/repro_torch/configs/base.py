@@ -1,7 +1,8 @@
 """Architecture config registry.
 
 Mirror of ``src/repro/configs/base.py`` for the architectures the port
-builds so far (the dense decoder family). Each module defines ``CONFIG``
+builds so far (the dense decoder family and the xLSTM of family
+``ssm``). Each module defines ``CONFIG``
 (the full-scale spec, citing its source) and ``SMOKE_OVERRIDES`` (the
 reduced variant the CPU tests use).
 """
@@ -12,6 +13,7 @@ import importlib
 from repro_torch.models.base import ModelConfig
 
 ARCH_IDS: list[str] = [
+    "xlstm-125m",
     "qwen1.5-0.5b",
     # the paper's own experiment model
     "llama3.2-1b",

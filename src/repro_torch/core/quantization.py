@@ -101,12 +101,34 @@ def quantize(x: torch.Tensor, fmt: str) -> QuantizedTensor:
     return QuantizedTensor(q, absmax, fmt, shape, dtype)
 
 
+def widen_fp16(h: torch.Tensor) -> torch.Tensor:
+    """fp16 -> fp32 by bit arithmetic on the ``int16`` view, the same bits
+    on any device: sign to bit 31; exponent 31 becomes 255 with the
+    10-bit payload shifted left by 13 and a NaN quieted (bit 22 set);
+    normals rebias the exponent; subnormals (exact in fp32) and zeros as
+    IEEE gives them. That is the reference's ``astype`` of a jax fp16
+    array. Torch's own CPU cast returns ``0x7fffffff`` for some NaNs
+    (its scalar path), and the card's ``cvt`` was never probed."""
+    bits = h.view(torch.int16).to(torch.int32) & 0xFFFF
+    exp = (bits >> 10) & 0x1F
+    man = bits & 0x3FF
+    sign = (bits >> 15) << 31                      # int32: wraps to the sign bit
+    normal = ((exp + 112) << 23) | (man << 13)
+    special = (0xFF << 23) | (man << 13) | ((man != 0).to(torch.int32) << 22)
+    tiny = (man.to(torch.float32) * 2.0 ** -24).view(torch.int32)   # zero and subnormals
+    out = torch.where(exp == 0x1F, special, torch.where(exp == 0, tiny, normal))
+    return (out | sign).view(torch.float32)
+
+
 def dequantize(qt: QuantizedTensor, device: Any) -> torch.Tensor:
     """QuantizedTensor -> tensor of its original shape and dtype on ``device``."""
     check_format(qt.fmt)
     dtype = torch_dtype(qt.orig_dtype)
     if qt.fmt not in _BLOCK_OF:
-        return as_tensor(qt.payload, device).to(dtype).reshape(qt.orig_shape)
+        payload = as_tensor(qt.payload, device)
+        if payload.dtype == torch.float16 and dtype != torch.float16:
+            payload = widen_fp16(payload)
+        return payload.to(dtype).reshape(qt.orig_shape)
     payload, absmax = as_tensor(qt.payload, device), as_tensor(qt.absmax, device)
     if qt.fmt == "blockwise8":
         return ops.dequantize_blockwise8(payload, absmax, qt.orig_shape, dtype)

@@ -224,3 +224,54 @@ def attention_inputs(name: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     k = rng.standard_normal((c["B"], c["KV"], c["sk"], c["hd"])).astype(np.float32)
     v = rng.standard_normal((c["B"], c["KV"], c["sk"], c["hd"])).astype(np.float32)
     return q, k, v
+
+
+#: the sLSTM-scan cases: batch, sequence length, chunk, heads, head dim, gx
+#: dtype, and the range of the gate inputs (None = standard normal, x =
+#: uniform in [-x, x])
+SLSTM_FIELDS = ("B", "S", "chunk", "H", "hd", "dtype", "gate_range")
+SLSTM_CASES: dict[str, tuple] = {
+    # the sweep of tests/test_slstm_kernel.py at smoke width (4 heads of 64)
+    "b2_s32_c8": (2, 32, 8, 4, 64, "float32", None),
+    "b1_s64_c16": (1, 64, 16, 4, 64, "float32", None),
+    "b3_s32_c32": (3, 32, 32, 4, 64, "float32", None),
+    # full width: xlstm-125m's 4 heads of 192
+    "full_width": (2, 64, 16, 4, 192, "float32", None),
+    # a head dim that is no multiple of a warp
+    "hd48": (2, 32, 16, 4, 48, "float32", None),
+    "bf16": (1, 32, 8, 4, 64, "bfloat16", None),
+    # the sequence as several of the reference's 256-step chunks
+    "three_chunks": (2, 768, 256, 4, 64, "float32", None),
+    # gate inputs at +-30: tanh and sigmoid saturate, log_sigmoid reaches
+    # -30, and exp(i - m) spans its range
+    "large_gates": (2, 32, 8, 4, 64, "float32", 30.0),
+}
+
+#: the sLSTM-scan kernel against its plain version on the card, h and the
+#: final state: (atol, rtol). Both widen gx to fp32 the same way and run the
+#: same fp32 gate math; they differ in the order of the hd products of each
+#: step (~1e-7 relative), and the recurrence does not amplify that (|h| <= 1,
+#: r is small): ~1e-6 expected, 1e-4 allowed, as for flash attention. bf16 gx
+#: is widened identically on both sides, so it needs no wider tolerance.
+SLSTM_TOL = (1e-4, 1e-4)
+
+
+def slstm_case(name: str) -> dict:
+    """One case of :data:`SLSTM_CASES` as a dict of its fields."""
+    return dict(zip(SLSTM_FIELDS, SLSTM_CASES[name]))
+
+
+def slstm_inputs(name: str) -> tuple[np.ndarray, np.ndarray]:
+    """fp32 gx (B, S, 4, H * hd) and r (4, H, hd, hd) from a seed of the
+    case's own: gx standard normal (or uniform in the case's range), r
+    normal * 0.05 as in ``tests/test_slstm_kernel.py``; callers cast gx to
+    the case's dtype."""
+    c = slstm_case(name)
+    rng = np.random.default_rng(sorted(SLSTM_CASES).index(name) + 31)
+    shape = (c["B"], c["S"], 4, c["H"] * c["hd"])
+    if c["gate_range"] is None:
+        gx = rng.standard_normal(shape)
+    else:
+        gx = rng.uniform(-c["gate_range"], c["gate_range"], shape)
+    r = rng.standard_normal((4, c["H"], c["hd"], c["hd"])) * 0.05
+    return gx.astype(np.float32), r.astype(np.float32)

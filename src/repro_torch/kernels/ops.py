@@ -2,8 +2,9 @@
 
 Mirror of ``src/repro/kernels/ops.py`` for the blockwise-int8 and 4-bit
 (fp4 / nf4) paths and the K-way int8 sum of the collectives;
-:data:`KERNELS` also lists the flash-attention wrapper
-(``flash_attention.py``), which the model calls directly. Dispatch is by
+:data:`KERNELS` also lists the flash-attention and sLSTM-scan wrappers
+(``flash_attention.py``, ``slstm_scan.py``), which the models call
+directly. Dispatch is by
 device, not by a backend switch: a CUDA tensor runs the hand-written
 kernel, a CPU tensor its plain version
 (see the wrappers in ``quant_blockwise8.py``, ``quant_nf4.py`` and
@@ -21,7 +22,13 @@ import math
 
 import torch
 
-from repro_torch.kernels import flash_attention, fused_dequant_agg, quant_blockwise8, quant_nf4
+from repro_torch.kernels import (
+    flash_attention,
+    fused_dequant_agg,
+    quant_blockwise8,
+    quant_nf4,
+    slstm_scan,
+)
 from repro_torch.kernels.ref import BLOCK4, BLOCK8
 
 #: every kernel wrapper whose ``launches`` counter a run can read
@@ -33,6 +40,7 @@ KERNELS = {
     "quantize_4bit": quant_nf4.quantize_4bit,
     "dequantize_4bit": quant_nf4.dequantize_4bit,
     "flash_attention": flash_attention.flash_attention,
+    "slstm_scan": slstm_scan.slstm_scan,
 }
 
 

@@ -1,11 +1,11 @@
 """Plain PyTorch versions of the kernels.
 
 Each function here is the semantic ground truth for one hand-written
-CUDA kernel in ``csrc/blockwise8.cu``, ``csrc/fourbit.cu`` or
-``csrc/flash_attention.cu``: the wrappers run it for tensors that lie on
-the CPU, the CPU tests hold it against the JAX package's ``ref`` backend
-(the quantization ops bitwise), and ``chip_smoke.py`` holds each kernel
-against it on the card.
+CUDA kernel in ``csrc/blockwise8.cu``, ``csrc/fourbit.cu``,
+``csrc/flash_attention.cu`` or ``csrc/slstm_scan.cu``: the wrappers run
+it for tensors that lie on the CPU, the CPU tests hold it against the
+JAX package's ``ref`` backend (the quantization ops bitwise), and
+``chip_smoke.py`` holds each kernel against it on the card.
 
 The arithmetic follows what the JAX reference computes when XLA runs
 it, which is not always what its source text says. Every float32 step
@@ -42,7 +42,9 @@ view; callers (``ops.py``) flatten and pad arbitrary shapes.
 
 :func:`attention` mirrors the reference's attention oracle
 (``src/repro/kernels/ref.py::attention``), the plain version of the
-flash-attention kernel; it is held to a tolerance, not to bits.
+flash-attention kernel, and :func:`slstm_scan` the reference's sLSTM
+scan kernel, its final state included; both are held to a tolerance,
+not to bits, and neither flushes subnormals.
 """
 from __future__ import annotations
 
@@ -234,3 +236,49 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
     return out.reshape(B, H, Sq, hd).to(q.dtype)
+
+
+#: the sLSTM state's running max at the start of a sequence
+SLSTM_M0 = -1e30
+
+
+def slstm_scan(gx: torch.Tensor, r: torch.Tensor, num_heads: int
+               ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The sLSTM time recurrence, step by step in fp32.
+
+    gx: (B, S, 4, D) hoisted gate pre-activations in gate order z, i, f,
+    o (fp32 or bf16, widened to fp32); r: (4, H, hd, hd) per-head
+    recurrent weights, D = H * hd. Returns h (B, S, D) fp32 and the final
+    state (c, n, h, m), each (B, H, hd) fp32, from c = n = h = 0 and
+    m = -1e30. Each step is the reference kernel's arithmetic
+    (``src/repro/kernels/slstm_scan.py``, ``_kernel``): the per-head
+    ``h @ r`` added to the gate inputs, then ``tanh``, ``sigmoid`` and
+    ``log_sigmoid``, ``m' = max(logf + m, i)``, the two exps, and
+    ``h' = o c' / max(n', 1e-6)``."""
+    B, S, four, D = gx.shape
+    H = num_heads
+    hd = D // H
+    gx = gx.to(torch.float32)
+    # (H, hd_in, gate * hd_out): one product per head gives all four gates
+    rr = r.to(torch.float32).permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
+    c = torch.zeros((B, H, hd), dtype=torch.float32, device=gx.device)
+    n = torch.zeros_like(c)
+    h = torch.zeros_like(c)
+    m = torch.full_like(c, SLSTM_M0)
+    out = torch.empty((B, S, D), dtype=torch.float32, device=gx.device)
+    for t in range(S):
+        g = gx[:, t].reshape(B, 4, H, hd)
+        gh = torch.einsum("bhk,hkl->bhl", h, rr).reshape(B, H, 4, hd)
+        z = torch.tanh(g[:, 0] + gh[:, :, 0])
+        i_in = g[:, 1] + gh[:, :, 1]
+        logf = torch.nn.functional.logsigmoid(g[:, 2] + gh[:, :, 2])
+        o = torch.sigmoid(g[:, 3] + gh[:, :, 3])
+        m_new = torch.maximum(logf + m, i_in)
+        i_s = torch.exp(i_in - m_new)
+        f_s = torch.exp(logf + m - m_new)
+        c = f_s * c + i_s * z
+        n = f_s * n + i_s
+        h = o * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        out[:, t] = h.reshape(B, D)
+    return out, (c, n, h, m)

@@ -9,7 +9,10 @@ Runs on the card unless ``--device`` names another device; without CUDA
 and without ``--device`` it raises. On the card a prompt whose length is
 a multiple of 128 prefills through the flash-attention kernel (e.g.
 ``--arch llama3.2-1b --prompt-len 512``); decode steps attend over the
-cache with the masked softmax.
+cache with the masked softmax. For ``--arch xlstm-125m`` a prompt of any
+length runs each sLSTM layer's recurrence through the sLSTM-scan kernel
+(e.g. ``--prompt-len 1024``), and decoding continues from the state the
+prefill returns.
 """
 from __future__ import annotations
 
@@ -45,7 +48,8 @@ def generate(model: Any, params: dict[str, Any], prompts: torch.Tensor, *, gen_l
     The reference's algorithm: prefill the prompt; for a full-attention
     ``DecoderLM`` discard the prefill's cache (sized to the prompt) and
     replay the prompt token by token into a (P + gen_len) cache; a
-    sliding-window model decodes on from the prefill's rolling cache.
+    sliding-window model decodes on from the prefill's rolling cache, and
+    a recurrent one (``XLSTMModel``) from the prefill's state.
     ``greedy=False`` samples from the softmax with ``generator``, a
     ``torch.Generator`` on the prompts' device (its draws are not
     ``jax.random.categorical``'s). Runs under

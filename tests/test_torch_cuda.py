@@ -10,7 +10,8 @@ places where a case holds NaN (a NaN's payload bits are not compared: the card's
 arithmetic returns its canonical NaN). Flash attention is held to the
 tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
 ``chip_smoke.py`` uses too), and its backward must
-raise. Two gloo ranks on the card run the int8 collective against the
+raise; so is the sLSTM scan (``SLSTM_TOL``, h and the final state), whose
+backward must raise too. Two gloo ranks on the card run the int8 collective against the
 same collective on the CPU, bitwise. Imports torch and the port only, so
 it runs on the card machine,
 which has no JAX:
@@ -31,12 +32,16 @@ from repro_torch.kernels.cases import (  # noqa: E402
     ATTENTION_CASES,
     ATTENTION_TOL,
     FOLD_WEIGHTS,
+    SLSTM_CASES,
+    SLSTM_TOL,
     agg_cases,
     attention_case,
     attention_inputs,
     blockwise8_cases,
     fold_accumulator,
     fourbit_cases,
+    slstm_case,
+    slstm_inputs,
     subnormal_accumulator,
 )
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -46,6 +51,7 @@ from repro_torch.kernels.quant_blockwise8 import (  # noqa: E402
 )
 
 from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit  # noqa: E402
+from repro_torch.kernels.slstm_scan import slstm_scan  # noqa: E402
 
 CASES = blockwise8_cases()
 CASES4 = fourbit_cases()
@@ -185,6 +191,52 @@ def test_agg_kernel_bitwise_equals_its_plain_version_on_the_card(cuda, name):
     assert ops.launch_counts()["dequant_accumulate8"] - before == 1
     assert out.dtype == torch.float32 and out.shape == qs.shape[1:]
     assert _same(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SLSTM_CASES))
+def test_slstm_kernel_matches_its_plain_version_on_the_card(cuda, name):
+    c = slstm_case(name)
+    gx, r = (torch.from_numpy(a).to(cuda) for a in slstm_inputs(name))
+    gx = gx.to(getattr(torch, c["dtype"]))
+    before = slstm_scan.launches
+    h, state = slstm_scan(gx, r, num_heads=c["H"], chunk=c["chunk"])
+    h_p, state_p = ref.slstm_scan(gx, r, c["H"])
+    torch.cuda.synchronize()
+    assert slstm_scan.launches - before == 1
+    assert h.dtype == torch.float32 and h.shape == h_p.shape
+    atol, rtol = SLSTM_TOL
+    torch.testing.assert_close(h, h_p, atol=atol, rtol=rtol)
+    for got, want in zip(state, state_p):
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_slstm_kernel_is_forward_only_on_the_card(cuda):
+    gx, r = (torch.from_numpy(a).to(cuda).requires_grad_(True)
+             for a in slstm_inputs("b2_s32_c8"))
+    h, _state = slstm_scan(gx, r, num_heads=4, chunk=8)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        h.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prompt", [200, 256])
+def test_xlstm_prefill_routes_whole_chunks_through_the_scan_kernel(cuda, prompt):
+    """On the card every prompt, a multiple of 256 or not, runs each sLSTM
+    layer through the kernel: one launch per super-block."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import create_model
+    model = create_model(get_smoke_config("xlstm-125m").with_overrides(remat=False))
+    params = model.init(0, cuda)
+    tokens = torch.zeros((2, prompt), dtype=torch.int32, device=cuda)
+    before = slstm_scan.launches
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens)
+    torch.cuda.synchronize()
+    assert slstm_scan.launches - before == model.n_super
+    assert bool(torch.isfinite(logits).all())
+    assert all(bool(torch.isfinite(t).all()) for block in cache.values() for t in block.values())
 
 
 def _collective_rank(rank, world, args):

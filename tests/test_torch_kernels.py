@@ -178,7 +178,8 @@ def test_kernels_build_from_the_repo_source():
     ``csrc/`` in this repo with the Hopper target and without fast math,
     and each C entry point the wrappers bind is defined in one of them."""
     names = [p.name for p in _build.SOURCES]
-    assert names == ["blockwise8.cu", "flash_attention.cu", "fourbit.cu"], names
+    assert names == ["blockwise8.cu", "flash_attention.cu", "fourbit.cu",
+                     "slstm_scan.cu"], names
     assert all(p.parent.name == "csrc" and p.is_file() for p in _build.SOURCES)
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
@@ -186,7 +187,7 @@ def test_kernels_build_from_the_repo_source():
     src = "".join(p.read_text() for p in _build.SOURCES)
     assert set(_build._SIGNATURES) == {"bw8_quantize", "bw8_dequantize", "bw8_fold",
                                        "bw8_agg", "fb4_quantize", "fb4_dequantize",
-                                       "flash_attention_fwd"}
+                                       "flash_attention_fwd", "slstm_scan_fwd"}
     for entry in _build._SIGNATURES:
         assert f"int {entry}(" in src, entry
 

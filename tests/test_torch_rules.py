@@ -71,6 +71,7 @@ def test_entry_point_imports_with_jax_and_reference_blocked():
         import repro_torch.launch.serve
         import repro_torch.launch.fl_train
         import repro_torch.core.collectives
+        import repro_torch.models.ssm
         import chip_smoke
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not leaked, leaked
@@ -123,7 +124,7 @@ def test_every_launch_counter_is_listed_in_ops_kernels():
         launches = "_build.launch(" in path.read_text()
         assert bool(names) == launches, path.name
         counted += [getattr(module, name) for name in names]
-    assert len(counted) == len(ops.KERNELS) == 7, counted
+    assert len(counted) == len(ops.KERNELS) == 8, counted
     assert {id(fn) for fn in counted} == {id(fn) for fn in ops.KERNELS.values()}
     for name, fn in ops.KERNELS.items():
         assert isinstance(fn.launches, int), name
@@ -131,7 +132,8 @@ def test_every_launch_counter_is_listed_in_ops_kernels():
 
 def test_kernel_wrappers_have_no_fallback_handlers():
     for name in ("quant_blockwise8.py", "quant_nf4.py", "fused_dequant_agg.py",
-                 "flash_attention.py", "ops.py", "../core/collectives.py"):
+                 "flash_attention.py", "slstm_scan.py", "ops.py", "../core/collectives.py",
+                 "../models/ssm.py"):
         src = (PORT / "kernels" / name).read_text()
         assert not re.search(r"^\s*(try|except)\b", src, re.MULTILINE), name
 
