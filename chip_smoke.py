@@ -6,7 +6,11 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--out report.json]
 
 It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-with nvcc (one compiler per source, in parallel) and holds each one against
+with nvcc (one compiler per source, in parallel, beside a small probe of the
+tensor cores' mma.sync rates), reads the built library's SASS (``cuobjdump``)
+for the redesigned kernels' mechanisms — tf32 and bf16 mma.sync and cp.async
+in flash attention, the cluster barrier in the sLSTM scan — and holds each
+kernel against
 its plain PyTorch version on the card at the main paths' shapes, timing
 both: quantize over one message's fused group, dequantize and the fold over
 the largest item. Then it drives two full-width llama3.2-1b federated
@@ -27,7 +31,8 @@ the CPU (``wire_pipeline.json`` as it stands, ``zlib`` and 2 rounds).
 Then the serving path (``repro_torch.launch.serve.generate``): the
 flash-attention kernel against its plain version on every case of
 ``kernels.cases.ATTENTION_CASES`` and at the two serving shapes, timed
-beside PyTorch's ``scaled_dot_product_attention``; full-width llama3.2-1b
+beside PyTorch's ``scaled_dot_product_attention``, with its fp32 bound, the
+bound of its own tensor-core arithmetic and its TFLOP/s; full-width llama3.2-1b
 served twice — full attention at batch 4, prompt 512, and the reference's
 long-context variant (``sliding_window`` 4096) at batch 1, prompt 8192 —
 each with the counters zeroed before and exactly one flash launch per
@@ -51,7 +56,8 @@ against the same round on the CPU.
 Then xLSTM serving (``launch.serve.generate`` on xlstm-125m): the sLSTM-scan
 kernel against its plain version (h and the final state) on every case of
 ``kernels.cases.SLSTM_CASES`` and at xlstm-125m's width at batch 4 x 1024
-steps and 1 x 8192, timed at both; full-width xlstm-125m served at batch
+steps and 1 x 8192, timed at both (us a step, with the cluster layout and
+shared memory a CTA); full-width xlstm-125m served at batch
 4, prompt 1024, 16 generated tokens, with the counters zeroed before and
 exactly one sLSTM-scan launch per sLSTM layer (6) after; smoke-width
 serving on the card against the CPU at a prompt of 200 (every prefill
@@ -110,6 +116,8 @@ CHUNK_BLOCKS4 = 1 << 21            # 64-blocks per plain-version comparison
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12             # fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12            # tensor cores, tf32
+BF16_OPS_PER_S = 989e12            # tensor cores, bf16
 
 #: the serving runs: full-width llama3.2-1b, (label, sliding window,
 #: batch, prompt, generated tokens); the window is the reference's
@@ -203,11 +211,143 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, batch: int = 10) -> floa
     return float(np.median(times))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least time on the card: the larger of bytes over HBM rate and fp32
-    operations over the fp32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound(nbytes: float, ops: float, rate: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """Least time on the card: the larger of bytes over HBM rate and
+    operations over ``rate`` (the fp32 peak unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_tensor_ops(hd: int, pairs: int, bf16_rate: float = BF16_OPS_PER_S,
+                     tf32_rate: float = TF32_OPS_PER_S) -> float:
+    """The flash kernel's tensor-core arithmetic on fp32 inputs as tf32
+    operations (to divide by the tf32 rate): per visible pair, 4 * hd of
+    the tf32 hi products (q k and p v) and 8 * hd of the bf16 product that
+    holds both small ones (twice the depth), counted at the bf16 rate."""
+    return 4 * hd * pairs + 8 * hd * pairs * tf32_rate / bf16_rate
+
+
+#: a tf32 m16n8k8 and a bf16 m16n8k16 mma.sync in a loop, 8 independent
+#: accumulators a warp: the tensor-core rates a kernel built on mma.sync can
+#: reach on this card (wgmma, which the published peaks assume, is not used)
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+template <int BF16>
+__global__ void probe(float* out, int iters) {
+  uint32_t a0 = threadIdx.x, a1 = a0 * 3u, a2 = a0 * 5u, a3 = a0 * 7u;
+  float d[8][4] = {};
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (BF16)
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                     : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+                     : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(j), "r"(i));
+      else
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+                     : "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+                     : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(j), "r"(i));
+    }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j) s += d[j][0] + d[j][1] + d[j][2] + d[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int mma_probe(int bf16, void* out, int blocks, int threads, int iters, void* stream) {
+  if (bf16) probe<1><<<blocks, threads, 0, (cudaStream_t)stream>>>((float*)out, iters);
+  else probe<0><<<blocks, threads, 0, (cudaStream_t)stream>>>((float*)out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_mma_probe_build(build_dir: str):
+    """Start nvcc on :data:`MMA_PROBE` (beside the kernel build, in
+    parallel); returns the process and the library path."""
+    from repro_torch.kernels import _build
+
+    os.makedirs(build_dir, exist_ok=True)
+    src = os.path.join(build_dir, "mma_probe.cu")
+    lib = os.path.join(build_dir, f"mma_probe.{os.getpid()}.so")
+    with open(src, "w") as fh:
+        fh.write(MMA_PROBE)
+    proc = subprocess.Popen([_build.find_nvcc(), *_build.ARCH_FLAGS, "-O3", "-shared",
+                             "-Xcompiler", "-fPIC", "-o", lib, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def mma_sync_rates(torch, proc, lib_path: str) -> dict[str, float]:
+    """TFLOP/s of tf32 m16n8k8 and bf16 m16n8k16 mma.sync at 16 warps an SM."""
+    import ctypes
+
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        fail(f"nvcc failed on the mma.sync probe:\n{log}")
+    lib = ctypes.CDLL(lib_path)
+    lib.mma_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 2 * sms, 256, 4096
+    out = torch.empty(blocks * threads, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for name, bf16, flops in (("tf32", 0, 2 * 16 * 8 * 8), ("bf16", 1, 2 * 16 * 8 * 16)):
+        ms = time_ms(torch, lambda: lib.mma_probe(bf16, out.data_ptr(), blocks, threads,
+                                                  iters, stream), reps=5, warmup=1, batch=3)
+        rates[name] = blocks * threads // 32 * iters * 8 * flops / ms / 1e9
+    print(f"mma.sync rates on this card (16 warps an SM): tf32 m16n8k8 "
+          f"{rates['tf32']:.1f} TFLOP/s, bf16 m16n8k16 {rates['bf16']:.1f} TFLOP/s "
+          f"(published dense peaks {TF32_OPS_PER_S / 1e12:.0f} and "
+          f"{BF16_OPS_PER_S / 1e12:.0f}, through wgmma)")
+    os.unlink(lib_path)
+    return rates
+
+
+def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
+    """Per kernel of the built library, the count of the SASS instructions
+    that show the redesigned kernels' mechanisms (``cuobjdump -sass``):
+    tensor-core products by type, cp.async copies, cluster barriers."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    ops = ("HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16", "LDGSTS", "UCGABAR")
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = {op: 0 for op in ops}
+        elif name is not None:
+            for op in ops:
+                if op in line:
+                    counts[name][op] += 1
+    return counts
+
+
+def check_sass(lib_path: str) -> dict[str, dict[str, int]]:
+    """The flash kernels run tf32 (and, on fp32 inputs, bf16) mma.sync with
+    cp.async copies; the sLSTM kernels meet at a cluster barrier."""
+    counts = sass_counts(lib_path)
+    flash = {k: v for k, v in counts.items() if "flash_fwd_kernel" in k}
+    scan = {k: v for k, v in counts.items() if "slstm_cluster_kernel" in k}
+    if len(flash) != 4 or len(scan) != 2:
+        fail(f"SASS: {len(flash)} flash and {len(scan)} sLSTM kernels, expected 4 and 2")
+    for name, c in flash.items():
+        fp32 = "flash_fwd_kernelIf" in name
+        if not (c["HMMA.1688.F32.TF32"] and c["LDGSTS"]
+                and (c["HMMA.16816.F32.BF16"] > 0) == fp32):
+            fail(f"SASS of {name}: {c}")
+    for name, c in scan.items():
+        if not c["UCGABAR"]:
+            fail(f"SASS of {name}: no cluster barrier ({c})")
+    for name, c in {**flash, **scan}.items():
+        print(f"  sass: {name[-60:]}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v))
+    return {**flash, **scan}
 
 
 def bits(torch, t):
@@ -756,7 +896,7 @@ def flash_inputs(torch, dev, B, H, KV, S, hd, seed):
             for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
 
 
-def check_flash_kernel(torch, dev) -> dict:
+def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
     """The flash-attention kernel against its plain version on the card:
     every case of ``kernels.cases.ATTENTION_CASES``, then the two serving
     shapes of llama3.2-1b (32 heads, 8 KV heads, hd 64) — batch 4 x 512
@@ -764,8 +904,12 @@ def check_flash_kernel(torch, dev) -> dict:
     ``kernels.cases.ATTENTION_TOL``. At the serving shapes it times the
     kernel, the plain version and PyTorch's ``scaled_dot_product_attention``
     (``enable_gqa``; ``is_causal``, or a boolean mask for the window), which
-    the port never calls. The bound is 4 * hd fp32 operations per visible pair against the
-    fp32 peak, or the bytes of q, k, v and the output, whichever is larger."""
+    the port never calls. Two bounds, each the larger of its operations and
+    the bytes of q, k, v and the output: the fp32 one (4 * hd fp32
+    operations per visible pair at the CUDA cores' fp32 peak) and the
+    kernel's own (its tf32 and bf16 tensor-core products at their published
+    peaks, :func:`flash_tensor_ops`), which is the row's bound; and the
+    kernel's products at the mma.sync ``rates`` measured here."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -816,7 +960,10 @@ def check_flash_kernel(torch, dev) -> dict:
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
         pairs = visible_pairs(S, S, True, window) * B * H
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        bound_ms, bound_by = bound(nbytes, 4 * hd * pairs)
+        fp32_ms, fp32_by = bound(nbytes, 4 * hd * pairs)
+        bound_ms, bound_by = bound(nbytes, flash_tensor_ops(hd, pairs), TF32_OPS_PER_S)
+        mma_ms, _ = bound(nbytes, flash_tensor_ops(hd, pairs, 1e12 * rates["bf16"],
+                                                   1e12 * rates["tf32"]), 1e12 * rates["tf32"])
         ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
         plain_ms = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, window=window),
                            reps=5, warmup=1, batch=1)
@@ -825,10 +972,15 @@ def check_flash_kernel(torch, dev) -> dict:
         release(torch)
         shapes[label] = {"shape": [B, H, KV, S, hd], "window": window, "pairs": pairs,
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+                         "bound_ms": bound_ms, "bound_by": bound_by, "bound_fp32_ms": fp32_ms,
+                         "bound_fp32_by": fp32_by, "bound_mma_sync_ms": mma_ms,
+                         "fp32_tflops": 4 * hd * pairs / ms / 1e9, "max_abs_err": err}
         print(f"flash_attention ({label} shape {B}x{H}x{S}x{hd}, KV {KV}, window {window}): "
-              f"{ms:.4f} ms ({4 * hd * pairs / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
-              f"by {bound_by} ({100 * bound_ms / ms:.1f}% of it), plain {plain_ms:.4f} ms, "
+              f"{ms:.4f} ms ({4 * hd * pairs / ms / 1e9:.1f} TFLOP/s of fp32 work); bound "
+              f"{bound_ms:.4f} ms by {bound_by} (tf32 + bf16 tensor-core products at their "
+              f"peaks; {100 * bound_ms / ms:.1f}% of it), fp32 bound {fp32_ms:.4f} ms by "
+              f"{fp32_by} ({100 * fp32_ms / ms:.1f}%), at the measured mma.sync rates "
+              f"{mma_ms:.4f} ms ({100 * mma_ms / ms:.1f}%); plain {plain_ms:.4f} ms, "
               f"SDPA {lib_ms:.4f} ms, max |err| {err:.3g}")
         del q, k, v
         release(torch)
@@ -1054,7 +1206,7 @@ def check_slstm_kernel(torch, dev) -> dict:
     is no library time."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cases import SLSTM_CASES, slstm_case, slstm_inputs
-    from repro_torch.kernels.slstm_scan import slstm_scan
+    from repro_torch.kernels.slstm_scan import cluster_layout, slstm_scan
 
     worst = 0.0
     for name in sorted(SLSTM_CASES):
@@ -1085,14 +1237,19 @@ def check_slstm_kernel(torch, dev) -> dict:
         ms = time_ms(torch, lambda: slstm_scan(gx, r, num_heads=H), reps=10, warmup=2,
                      batch=5 if S <= 1024 else 2)
         plain_ms = time_ms(torch, lambda: ref.slstm_scan(gx, r, H), reps=3, warmup=1, batch=1)
+        layout = cluster_layout(hd)._asdict()
         shapes[label] = {"shape": [B, S, H, hd], "ms": ms, "us_per_step": 1e3 * ms / S,
                          "plain_ms": plain_ms, "plain_us_per_step": 1e3 * plain_ms / S,
                          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "layout": layout, "ctas": layout["cluster"] * B * H,
                          "max_abs_err": err}
         print(f"slstm_scan ({label} shape {B}x{S}, {H} heads of {hd}): {ms:.4f} ms "
               f"({1e3 * ms / S:.3f} us a step), bound {bound_ms:.4f} ms by {bound_by} "
               f"({100 * bound_ms / ms:.2f}% of it), plain {plain_ms:.2f} ms "
-              f"({1e3 * plain_ms / S:.1f} us a step), library n/a, max |err| {err:.3g}")
+              f"({1e3 * plain_ms / S:.1f} us a step), library n/a, max |err| {err:.3g}; "
+              f"clusters of {layout['cluster']} CTAs ({layout['cluster'] * B * H} CTAs), "
+              f"{layout['threads']} threads and {layout['smem_bytes']} bytes of shared "
+              f"memory a CTA")
         del gx, r
         release(torch)
     return {"cases_max_abs_err": worst, **shapes}
@@ -1528,6 +1685,7 @@ def main(argv=None) -> int:
     print("TF32: off for matmul and cuDNN")
 
     t0 = time.perf_counter()
+    probe = start_mma_probe_build(str(_build.BUILD_DIR))
     lib_path, log = _build.build()
     _build.library()
     build_s = time.perf_counter() - t0
@@ -1537,6 +1695,9 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line \
                 or line.startswith("== "):
             print(f"  ptxas: {line.strip()}")
+
+    sass = check_sass(str(lib_path))
+    rates = mma_sync_rates(torch, *probe)
 
     dev = torch.device("cuda")
     rows = check_kernels(torch, dev)
@@ -1555,7 +1716,7 @@ def main(argv=None) -> int:
     parity = check_against_cpu(torch, dev)
     parity_nf4 = check_nf4_against_cpu(torch, dev)
 
-    flash = check_flash_kernel(torch, dev)
+    flash = check_flash_kernel(torch, dev, rates)
     serve = {label: run_serve(torch, dev, label, window, batch, prompt, gen)
              for label, window, batch, prompt, gen in SERVE_RUNS}
     serve_cpu = check_serve_against_cpu(torch, dev)
@@ -1571,13 +1732,14 @@ def main(argv=None) -> int:
     rows["slstm_scan"] = {
         **{k: slstm["serve_xlstm"][k] for k in ("shape", "ms", "us_per_step", "plain_ms",
                                                  "library_ms", "bound_ms", "bound_by",
-                                                 "max_abs_err")},
+                                                 "layout", "max_abs_err")},
         "long_prompt": slstm["long_prompt"], "cases_max_abs_err": slstm["cases_max_abs_err"]}
     rows["dequant_accumulate8"] = agg
     windowed = flash["serve_window"]
     rows["flash_attention"] = {
         **{k: flash["serve_full"][k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                                "bound_ms", "bound_by", "max_abs_err")},
+                                                "bound_ms", "bound_by", "bound_fp32_ms",
+                                                "fp32_tflops", "max_abs_err")},
         "windowed": {**windowed, "launches": serve["serve_window"]["launches"]
                      ["flash_attention"]},
         "cases_max_abs_err": flash["cases_max_abs_err"]}
@@ -1593,7 +1755,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump({"card": card, "torch": torch.__version__,
-                       "cuda": torch.version.cuda, "build_s": build_s,
+                       "cuda": torch.version.cuda, "build_s": build_s, "sass": sass,
+                       "mma_sync_tflops": rates,
                        "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
                        "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
                        "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,

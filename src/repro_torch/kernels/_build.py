@@ -51,8 +51,9 @@ _SIGNATURES = {
     # scale; stream
     "flash_attention_fwd": [_P, _P, _P, _P, *[ctypes.c_longlong] * 6,
                             *[ctypes.c_int] * 3, ctypes.c_longlong, ctypes.c_float, _P],
-    # gx, r, h_out, state; B, S, H, hd; bf16; stream
-    "slstm_scan_fwd": [_P, _P, _P, _P, *[ctypes.c_longlong] * 4, ctypes.c_int, _P],
+    # gx, r, h_out, state; B, S, H, hd; bf16, split, threads; smem bytes; stream
+    "slstm_scan_fwd": [_P, _P, _P, _P, *[ctypes.c_longlong] * 4, *[ctypes.c_int] * 3,
+                       ctypes.c_longlong, _P],
 }
 
 _lock = threading.Lock()

@@ -199,7 +199,18 @@ ATTENTION_CASES: dict[str, tuple] = {
     "ragged": (1, 4, 2, 200, 200, 64, "float32", True, 48),
     "bf16": (1, 2, 2, 128, 128, 64, "bfloat16", True, None),
     "bf16_hd128_window": (1, 4, 1, 256, 256, 128, "bfloat16", True, 64),
+    # a query length that is a multiple of 64 but not of the kernel's 128-row
+    # tile, with a window that is no multiple of a 64-key tile
+    "window100_sq320": (1, 4, 2, 320, 320, 64, "float32", True, 100),
+    # bf16 at hd 128 without a window (its kernel keeps Q whole in registers)
+    "bf16_hd128": (1, 4, 2, 256, 256, 128, "bfloat16", True, None),
 }
+#: the order that seeds each attention case's inputs: the first cases by
+#: name, then the later ones as they were added, so that adding a case
+#: leaves the inputs of the others as they were
+_ATTENTION_ADDED = ("window100_sq320", "bf16_hd128")
+ATTENTION_SEED_ORDER = (*sorted(set(ATTENTION_CASES) - set(_ATTENTION_ADDED)),
+                        *_ATTENTION_ADDED)
 
 
 #: the flash-attention kernel against its plain version, by dtype: (atol,
@@ -219,7 +230,7 @@ def attention_inputs(name: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """fp32 q (B,H,Sq,hd), k and v (B,KV,Sk,hd), standard normal from a
     seed of the case's own; callers cast them to the case's dtype."""
     c = attention_case(name)
-    rng = np.random.default_rng(sorted(ATTENTION_CASES).index(name) + 17)
+    rng = np.random.default_rng(ATTENTION_SEED_ORDER.index(name) + 17)
     q = rng.standard_normal((c["B"], c["H"], c["sq"], c["hd"])).astype(np.float32)
     k = rng.standard_normal((c["B"], c["KV"], c["sk"], c["hd"])).astype(np.float32)
     v = rng.standard_normal((c["B"], c["KV"], c["sk"], c["hd"])).astype(np.float32)
@@ -245,7 +256,13 @@ SLSTM_CASES: dict[str, tuple] = {
     # gate inputs at +-30: tanh and sigmoid saturate, log_sigmoid reaches
     # -30, and exp(i - m) spans its range
     "large_gates": (2, 32, 8, 4, 64, "float32", 30.0),
+    # the largest head dim the kernel takes: one gate's r does not fit a
+    # block's shared memory, so each gate spans 2 CTAs (a cluster of 8)
+    "hd256": (1, 32, 8, 2, 256, "float32", None),
 }
+#: the order that seeds each sLSTM case's inputs (see ATTENTION_SEED_ORDER)
+_SLSTM_ADDED = ("hd256",)
+SLSTM_SEED_ORDER = (*sorted(set(SLSTM_CASES) - set(_SLSTM_ADDED)), *_SLSTM_ADDED)
 
 #: the sLSTM-scan kernel against its plain version on the card, h and the
 #: final state: (atol, rtol). Both widen gx to fp32 the same way and run the
@@ -267,7 +284,7 @@ def slstm_inputs(name: str) -> tuple[np.ndarray, np.ndarray]:
     normal * 0.05 as in ``tests/test_slstm_kernel.py``; callers cast gx to
     the case's dtype."""
     c = slstm_case(name)
-    rng = np.random.default_rng(sorted(SLSTM_CASES).index(name) + 31)
+    rng = np.random.default_rng(SLSTM_SEED_ORDER.index(name) + 31)
     shape = (c["B"], c["S"], 4, c["H"] * c["hd"])
     if c["gate_range"] is None:
         gx = rng.standard_normal(shape)

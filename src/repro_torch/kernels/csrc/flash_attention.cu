@@ -4,46 +4,85 @@
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention.py  flash_attention_pallas  (_kernel)
 //
-// What bounds it on this card. The arithmetic is fp32 throughout (the reference
-// casts its tiles to fp32, so its p @ v is fp32 too), and fp32 products do not
-// run on the tensor cores: the bound is 4 * hd operations per visible
-// (query, key) pair at the card's fp32 rate (67 TFLOP/s), far above the bytes
-// of q, k, v and o at the serving shapes (a 512-token prefill is 0.064 ms of
-// operations against 0.013 ms of bytes). The scores never touch device memory.
+// What bounds it on this card. The reference computes in fp32 (it casts its
+// tiles to fp32, so its p @ v is fp32 too), and the tolerance (1e-4) rules out
+// single-pass TF32, which keeps 10 bits of mantissa. On the CUDA cores the
+// work is 4 * hd fp32 operations per visible (query, key) pair at 67 TFLOP/s
+// (the first, simple design ran there at 26 TFLOP/s). On the tensor cores an
+// fp32-accurate product takes the split x = hi + lo, hi = tf32(x) (cvt.rna),
+// lo = x - hi rounded again, and three products:
+//   a b ~ a_hi b_hi + (a_hi b_lo + a_lo b_hi)      (a_lo b_lo, 2^-22 of it, dropped)
+// The big one runs as tf32 mma.sync m16n8k8. The two small ones need only
+// ~8 bits, so they run together as one bf16 mma.sync m16n8k16 whose k axis
+// holds [hi | lo] against [lo ; hi] (measured on an H100: a bf16 m16n8k16
+// issues at the same rate as a tf32 m16n8k8, so this is 2 tensor-core
+// instructions per 8-deep step where 3xTF32 takes 3; each product keeps ~19
+// bits). So the bound is operations: 4 * hd per visible pair at the tf32 rate
+// plus 8 * hd at the bf16 rate (495 and 989 TFLOP/s dense), twice the
+// single-pass tf32 time. mma.sync reaches ~270 TFLOP/s of tf32 on this card
+// (wgmma is needed for the 495). The bytes of q, k, v and o are below it at
+// the serving shapes, and the scores never touch device memory.
 //
-// Design (a first, simple one: no wgmma, no TMA, no bf16 tensor-core path).
-//   * One CTA of 256 threads per (batch, query head, tile of 64 query rows);
-//     the grid is (query tiles, H, B). A loop inside the CTA walks the K/V
-//     tiles of 64 keys, where the TPU kernel's grid walked its own steps.
-//   * The CTA stages its Q tile once and each K and V tile in shared memory as
-//     fp32 (bf16 inputs are widened on load), rows padded by 4 floats so that
-//     the 16-byte reads of neighbouring threads fall in distinct banks. At
-//     hd 128 that is 118,784 bytes of dynamic shared memory (69,632 at hd 64),
-//     above the 48 KB default, hence cudaFuncSetAttribute before each launch.
-//   * Thread (ty, tx) of the 16 x 16 layout owns query rows ty + 16 i and key
-//     columns tx + 16 j (i, j < 4) of the 64 x 64 score tile: 64 fmaf per four
-//     16-byte shared reads. The row max and row sum of the online softmax are
-//     shuffles over the 16 lanes sharing ty; m, l and the output rows stay in
-//     registers (4 rows x hd/16 columns of the output, as float4 at columns
-//     4 tx + 64 jj). The probabilities go through shared memory to p @ v.
-//   * Tiles wholly outside the causal and window band are skipped, so a
-//     windowed prefill costs O(S * window), not O(S^2). A tile is visited
-//     whenever any of its 64 rows may see a key in it.
+// Design.
+//   * One CTA of 8 warps per (query head, batch row, tile of 128 query rows);
+//     warp w owns rows 16 w .. 16 w + 15 of the tile. The grid is (H, B, query
+//     tiles) with the tile index reversed, so the tiles that see the most keys
+//     (causal: the last ones) are dispatched first, for every head at once.
+//   * Q is scaled by 1/sqrt(hd) and split once per CTA into a tf32 hi fragment
+//     and the bf16 [hi | lo] fragment, kept in registers (fp32 at hd 128
+//     keeps Q itself, 64 registers, and splits it at each use: both fragments
+//     would take 128). Each K and V tile is split once when it lands in shared
+//     memory: hi in place, and a correction plane holding, as bf16 pairs, lo
+//     and hi of two consecutive k (K: two head columns; V: two keys) where the
+//     bf16 B fragment reads them as one 8-byte word. A bf16 input is exact in
+//     tf32: no lo and no correction plane, Q K^T one tf32 product, P V two
+//     (P's hi and lo against V).
+//   * The k index of the tf32 products is permuted (logical k = t, t + 4 read
+//     physical 2t, 2t + 1) so that the S accumulators of one 8-key step are the
+//     A fragment of P V as they stand: no shuffles and no staging of P. K is
+//     read as 8-byte pairs at row stride hd + 8, V as 4-byte words at row
+//     stride hd + 4, the correction planes as 8-byte words; all free of bank
+//     conflicts.
+//   * Copies: a ring of three K/V stages filled by cp.async (16-byte, .cg;
+//     rows past Sk zero-filled). Iteration i starts the copy of tile i + 2,
+//     splits tile i + 1 (each thread the chunks it copied itself, after its
+//     cp.async.wait_group; V's rows in pairs) and multiplies tile i, the split
+//     in the same basic block as the products so that the two overlap; one
+//     barrier a tile publishes the split tile and frees the stage and plane
+//     set just read. Tiles are 64 keys at hd 64 and 32 at hd 128.
+//   * Shared memory per CTA: three stages and two plane sets (fp32:
+//     correction planes; bf16: hi planes) of 64 or 32 keys x ((hd + 8) +
+//     (hd + 4)) words; a bf16 stage holds raw bf16 rows of hd. fp32: 179,200
+//     bytes at hd 64, 171,520 at hd 128; bf16: 120,832 and 117,760. Above the
+//     48 KB default, hence cudaFuncSetAttribute before each launch.
+//   * Each tile in two halves: both halves' scores first, then the softmax
+//     and P V of each, so the scheduler overlaps one half's exps with the
+//     other half's products (the tensor pipe otherwise idles while a warp
+//     runs its softmax).
+//   * Online softmax with the row max in registers (a quad of lanes shares a
+//     row: two shuffles); the row sum is kept per lane and summed over the
+//     quad once, at the end.
+//   * Masks only where the band has an edge. Per warp and K tile: tiles wholly
+//     outside the causal / window band are skipped, tiles wholly inside it skip
+//     the per-element mask, and only the tiles that cross an edge pay it. The
+//     CTA walks only the tiles some row of it may see.
 //   * Rows that see no key at all (only possible with a window, past
 //     Sk + window - 1) get what the reference gives them: every score is the
 //     finite fill -1e30, so exp(0) = 1 for each key and the row averages all
-//     values. The CTA holding such a row visits every tile. The fill is never
-//     -inf, since -inf - (-inf) is NaN; a row whose first visited tile is all
-//     masked carries p = 1 until alpha = exp(-1e30 - m) wipes it, as in the
-//     reference. Keys past Sk (a ragged last tile) get p = 0.
+//     values. A warp holding such a row visits every tile with the mask. The
+//     fill is never -inf, since -inf - (-inf) is NaN; a row whose first
+//     visited tile is all masked carries p = 1 until alpha = exp(-1e30 - m)
+//     wipes it, as in the reference. Keys past Sk (a ragged last tile) get
+//     p = 0.
 //   * Offsets are 64-bit (B * H * S * hd exceeds 2^31 at long prompts).
+//   * Not wgmma: its tf32 form needs B K-major, which V is not without a
+//     transpose, and wgmma is kept for a bf16 model (ROADMAP).
 //
 // Numerics. Not bitwise: the sums run in another order than the reference's
-// and the plain version's, so the kernel is held to a tolerance. The dot
-// products and p @ v are written as explicit fmaf, since the build's
-// -fmad=false would otherwise emit a multiply and an add; expf is the
-// accurate one (no fast math); the output is acc / max(l, 1e-30), rounded to
-// the output type (round to nearest even for bf16).
+// and the plain version's, and each product keeps ~19 bits, so the kernel is
+// held to a tolerance (kernels/cases.py ATTENTION_TOL; ~1e-6 measured). expf
+// is the accurate one (no fast math); the output is acc / max(l, 1e-30),
+// rounded to the output type (round to nearest even for bf16).
 //
 // Layout. The kernel takes q (B,H,Sq,hd) and k, v (B,KV,Sk,hd), contiguous, and
 // writes o (B,H,Sq,hd) in q's type; the model's (b,s,H,hd) tensors are copied
@@ -57,227 +96,567 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;             // query rows per CTA
-constexpr int kBK = 64;             // keys per K/V tile
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kRows = 4;            // query rows per thread: ty + 16 i
-constexpr int kCols = 4;            // score columns per thread: tx + 16 j
-constexpr int kPad = 4;             // floats of padding per shared row
-constexpr int kPStride = kBK + kPad;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;    // query rows per CTA, 16 per warp
+constexpr int kStages = 3;          // K/V tiles in the cp.async ring
 constexpr float kMaskFill = -1e30f; // the reference's fill: finite on purpose
-static_assert(kBQ == kBK, "load_tile stages Q, K and V tiles of the same height");
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (static_cast<size_t>(kBQ + 2 * kBK) * (HD + kPad) +
-                          static_cast<size_t>(kBQ) * kPStride);
-}
+enum Mode { kSkip, kFull, kEdge };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// four bf16 (8 bytes) widened to fp32: a bf16 is the top half of its float
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const uint32_t a = __bfloat16_as_ushort(__float2bfloat16_rn(v.x));
-  const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(v.y));
-  const uint32_t c = __bfloat16_as_ushort(__float2bfloat16_rn(v.z));
-  const uint32_t d = __bfloat16_as_ushort(__float2bfloat16_rn(v.w));
-  *reinterpret_cast<uint2*>(p) = make_uint2(a | (b << 16), c | (d << 16));
-}
-
-// rows [row0, row0 + 64) of a (nrows, HD) matrix into a padded fp32 tile;
-// rows past nrows are zero
 template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long row0,
-                                          long long nrows) {
-  constexpr int kVecs = HD / 4;
-  for (int f = threadIdx.x; f < kBK * kVecs; f += kThreads) {
-    const int r = f / kVecs;
-    const int c = (f % kVecs) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < nrows) val = load4(src + (row0 + r) * HD + c);
-    *reinterpret_cast<float4*>(dst + r * (HD + kPad) + c) = val;
+struct Layout {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kBK = HD == 64 ? 64 : 32;   // keys per K/V tile
+  static constexpr int KS = HD + 8;                // fp32 row stride of a K plane
+  static constexpr int VS = HD + 4;                // fp32 row stride of a V plane
+  static constexpr int RS = kF32 ? 0 : HD;         // bf16 row stride of a raw stage
+  static constexpr int kPlanes = kBK * (KS + VS);  // floats of one K + V plane pair
+  // fp32: three stages (split to hi in place), then two sets of correction planes;
+  // bf16: three stages of raw bf16 rows, then two sets of hi planes
+  static constexpr size_t kStageBytes = kF32 ? 4 * size_t(kPlanes) : 2 * size_t(kBK) * 2 * HD;
+  static constexpr size_t kSetBytes = 4 * size_t(kPlanes);
+  static constexpr size_t kBytes = kStages * kStageBytes + 2 * kSetBytes;
+  static_assert(kBytes <= 232448, "shared memory over a block's 227 KB");
+};
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a b on the tensor cores, m16n8k8, tf32 inputs, fp32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b on the tensor cores, m16n8k16, bf16 inputs, fp32 accumulators: the
+// two small products of the fp32 split at once (a = [hi | lo] along k)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (to nearest even) in one word, first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float first, float second) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(second), "f"(first));
+  return r;
+}
+
+// 16 bytes from device memory to shared memory, asynchronously; zero-filled
+// when !valid (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// two consecutive elements of a row, widened to fp32 (bf16 is the top half of its float)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(raw << 16), __uint_as_float(raw & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(a));
+  const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(b));
+  *reinterpret_cast<uint32_t*>(p) = lo | (hi << 16);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Start the copy of keys [k0, k0 + kBK) of K and V into one stage: fp32 into
+// the padded planes themselves, bf16 into raw rows of hd.
+template <typename T, int HD>
+__device__ __forceinline__ void issue_tile(T* kdst, T* vdst, const T* kb, const T* vb,
+                                           long long k0, long long sk) {
+  using L = Layout<T, HD>;
+  constexpr int kBK = L::kBK;
+  constexpr int kE = 16 / sizeof(T);    // elements per 16-byte chunk
+  constexpr int kCPR = HD / kE;         // chunks per row
+  constexpr int kKS = L::kF32 ? L::KS : L::RS;
+  constexpr int kVS = L::kF32 ? L::VS : L::RS;
+  static_assert(kBK * kCPR % (2 * kThreads) == 0, "whole chunk pairs per thread");
+  // chunk f is row f / kCPR; fp32 copies V's rows in pairs (2 rp, 2 rp + 1)
+  // at one column chunk instead, since its split pairs keys
+#pragma unroll
+  for (int i = 0; i < kBK * kCPR / kThreads; ++i) {
+    const int f = threadIdx.x + i * kThreads;
+    const int r = f / kCPR;
+    const int c = (f % kCPR) * kE;
+    const bool ok = k0 + r < sk;
+    cp_async16(kdst + r * kKS + c, kb + (ok ? k0 + r : 0) * HD + c, ok);
+    int rv = r, cv = c;
+    if constexpr (L::kF32) {
+      const int fv = threadIdx.x + (i >> 1) * kThreads;
+      rv = 2 * (fv / kCPR) + (i & 1);
+      cv = (fv % kCPR) * kE;
+    }
+    const bool okv = k0 + rv < sk;
+    cp_async16(vdst + rv * kVS + cv, vb + (okv ? k0 + rv : 0) * HD + cv, okv);
   }
 }
 
-__device__ __forceinline__ float row_max16(float x) {
+// x split as hi = tf32(x), lo = x - hi (exact), and the word pair a bf16
+// m16n8k16 B fragment takes for two consecutive k: (lo, lo') and (hi, hi')
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hx, uint32_t& hy,
+                                           uint32_t& w_lo, uint32_t& w_hi) {
+  hx = tf32(x);
+  hy = tf32(y);
+  const float hxf = __uint_as_float(hx), hyf = __uint_as_float(hy);
+  w_lo = pack_bf16(x - hxf, y - hyf);
+  w_hi = pack_bf16(hxf, hyf);
+}
+
+// Split the chunks this thread copied (after its cp.async.wait_group). fp32
+// rounds each value to tf32 hi in place and writes the correction planes: for
+// K, per row and pair of head columns (2p, 2p + 1), the words (lo, lo') and
+// (hi, hi') in bf16 at word 2p; for V, per pair of keys (2rp, 2rp + 1) and
+// column c, the same two words at 8-byte slot rp * VS + c. bf16 widens its raw
+// rows into the fp32 hi planes (exact in tf32; no correction: lo is zero).
+template <typename T, int HD>
+__device__ __forceinline__ void split_tile(T* kst, T* vst, float* kp, float* vp) {
+  using L = Layout<T, HD>;
+  constexpr int kBK = L::kBK;
+  constexpr int kE = 16 / sizeof(T);
+  constexpr int kCPR = HD / kE;
+  if constexpr (L::kF32) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
+    for (int i = 0; i < kBK * kCPR / kThreads; ++i) {
+      const int f = threadIdx.x + i * kThreads;
+      const int r = f / kCPR;
+      const int c = (f % kCPR) * kE;
+      float* src = reinterpret_cast<float*>(kst) + r * L::KS + c;
+      const float4 x = *reinterpret_cast<const float4*>(src);
+      uint4 h, w;
+      split_pair(x.x, x.y, h.x, h.y, w.x, w.y);
+      split_pair(x.z, x.w, h.z, h.w, w.z, w.w);
+      *reinterpret_cast<uint4*>(src) = h;
+      *reinterpret_cast<uint4*>(kp + r * L::KS + c) = w;
+    }
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+    for (int i = 0; i < kBK * kCPR / kThreads / 2; ++i) {
+      const int fv = threadIdx.x + i * kThreads;
+      const int rp = fv / kCPR;
+      const int c = (fv % kCPR) * kE;
+      float* s0 = reinterpret_cast<float*>(vst) + 2 * rp * L::VS + c;
+      float* s1 = s0 + L::VS;
+      const float4 x0 = *reinterpret_cast<const float4*>(s0);
+      const float4 x1 = *reinterpret_cast<const float4*>(s1);
+      uint4 h0, h1, wa, wb;
+      split_pair(x0.x, x1.x, h0.x, h1.x, wa.x, wa.y);
+      split_pair(x0.y, x1.y, h0.y, h1.y, wa.z, wa.w);
+      split_pair(x0.z, x1.z, h0.z, h1.z, wb.x, wb.y);
+      split_pair(x0.w, x1.w, h0.w, h1.w, wb.z, wb.w);
+      *reinterpret_cast<uint4*>(s0) = h0;
+      *reinterpret_cast<uint4*>(s1) = h1;
+      float* dst = vp + 2 * (rp * L::VS + c);
+      *reinterpret_cast<uint4*>(dst) = wa;
+      *reinterpret_cast<uint4*>(dst + 4) = wb;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBK * kCPR / kThreads; ++i) {
+      const int f = threadIdx.x + i * kThreads;
+      const int r = f / kCPR;
+      const int c = (f % kCPR) * kE;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const uint4 raw = *reinterpret_cast<const uint4*>((side ? vst : kst) + r * L::RS + c);
+        float* dst = side ? vp + r * L::VS + c : kp + r * L::KS + c;
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(raw.x << 16, raw.x & 0xffff0000u, raw.y << 16, raw.y & 0xffff0000u);
+        *reinterpret_cast<uint4*>(dst + 4) =
+            make_uint4(raw.z << 16, raw.z & 0xffff0000u, raw.w << 16, raw.w & 0xffff0000u);
+      }
+    }
+  }
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+// split_tile on a stage and a plane set as the ring lays them out
+template <typename T, int HD>
+__device__ __forceinline__ void split_next(T* st, float* planes) {
+  using L = Layout<T, HD>;
+  split_tile<T, HD>(st, st + (L::kF32 ? L::kBK * L::KS : L::kBK * HD), planes,
+                    planes + L::kBK * L::KS);
 }
 
-__device__ __forceinline__ void fma4(float4& acc, float p, const float4& v) {
-  acc.x = fmaf(p, v.x, acc.x);
-  acc.y = fmaf(p, v.y, acc.y);
-  acc.z = fmaf(p, v.z, acc.z);
-  acc.w = fmaf(p, v.w, acc.w);
+// What a warp's tile step reads besides its fragments: the tile's planes and
+// the masks' arguments.
+struct TileCtx {
+  const float* Kh;   // K hi plane (fp32: the stage itself)
+  const float* Kl;   // K correction plane (fp32 only)
+  const float* Vh;
+  const float* Vl;   // V correction plane (fp32 only)
+  long long k0, ra, sk, window;
+  int causal, has_window, g, t;
+  float scale;   // applied to the scores of bf16 inputs
+};
+
+// The A fragments of Q for one k-step from its four values x = (Q[g][2t],
+// Q[g+8][2t], Q[g][2t+1], Q[g+8][2t+1]) (the tf32 fragment's permuted k):
+// the tf32 hi fragment, and the bf16 m16n8k16 fragment [hi | lo] in natural k
+// order (a0 = row g, k 2t and 2t + 1 of hi; a2 the same of lo).
+__device__ __forceinline__ void q_frags(const float (&x)[4], uint32_t (&hi)[4],
+                                        uint32_t (&corr)[4]) {
+  float lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = tf32(x[e]);
+    lo[e] = x[e] - __uint_as_float(hi[e]);
+  }
+  corr[0] = pack_bf16(__uint_as_float(hi[0]), __uint_as_float(hi[2]));
+  corr[1] = pack_bf16(__uint_as_float(hi[1]), __uint_as_float(hi[3]));
+  corr[2] = pack_bf16(lo[0], lo[2]);
+  corr[3] = pack_bf16(lo[1], lo[3]);
+}
+
+// One half of a K tile (NP n-tiles of 8 keys): S = Q K^T into sh; n-tile j
+// holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) of its 8 keys. fp32: per
+// k-step, hi hi on tf32 and hi lo + lo hi in one bf16 m16n8k16 (the
+// correction words sit at the same word offset as the hi pair); bf16 inputs
+// are exact in tf32: one product.
+template <bool F32, bool QLO, int HD, int NP, int QLR>
+__device__ __forceinline__ void tile_scores(float (&sh)[NP][4], int half,
+                                            const uint32_t (&qh)[HD / 8][4],
+                                            const uint32_t (&qc)[QLR][4], const TileCtx& c) {
+  constexpr int KS = HD + 8;
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sh[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    uint32_t ah[4], ac[4];
+    if constexpr (QLO) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[e] = qh[ks][e];
+        ac[e] = qc[ks][e];
+      }
+    } else if constexpr (F32) {
+      // split here, in the tile loop: hoisted out of it, the fragments would
+      // take 128 registers and spill (the volatile asm keeps it here)
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t raw = qh[ks][e];
+        asm volatile("" : "+r"(raw));
+        x[e] = __uint_as_float(raw);
+      }
+      q_frags(x, ah, ac);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ah[e] = qh[ks][e];
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int off = (8 * (j + half * NP) + c.g) * KS + 8 * ks + 2 * c.t;
+      const uint2 bh = *reinterpret_cast<const uint2*>(c.Kh + off);
+      if constexpr (F32) {
+        const uint2 bc = *reinterpret_cast<const uint2*>(c.Kl + off);
+        mma_bf16(sh[j], ac, bc.x, bc.y);
+      }
+      mma(sh[j], ah, bh.x, bh.y);
+    }
+  }
+}
+
+// The masks (edge tiles only), the online softmax of rows g and g + 8 over
+// the half, and O += P V. The S accumulators of an 8-key step are the tf32 A
+// fragment (a0, a1, a2, a3) = (s0, s2, s1, s3) under the permuted k, and
+// (in natural key order) the bf16 fragment [hi | lo] of the correction.
+template <bool F32, bool MASKED, int HD, int NP>
+__device__ __forceinline__ void tile_softmax_pv(float (&sh)[NP][4], int half, float (&m)[2],
+                                                float (&l)[2], float (&acc)[HD / 8][4],
+                                                const TileCtx& c) {
+  constexpr int VS = HD + 4;
+  float rmax[2] = {kMaskFill, kMaskFill};
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = F32 ? sh[j][e] : sh[j][e] * c.scale;
+      if constexpr (MASKED) {
+        const long long qi = c.ra + c.g + 8 * (e >> 1);
+        const long long ki = c.k0 + 8 * (j + half * NP) + 2 * c.t + (e & 1);
+        const bool visible = ki < c.sk && (!c.causal || ki <= qi) &&
+                             (!c.has_window || qi - ki < c.window);
+        x = visible ? x : kMaskFill;
+      }
+      sh[j][e] = x;
+      rmax[e >> 1] = fmaxf(rmax[e >> 1], x);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float m_new = fmaxf(m[rr], quad_max(rmax[rr]));
+    alpha[rr] = expf(m[rr] - m_new);
+    m[rr] = m_new;
+    l[rr] *= alpha[rr];
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = expf(sh[j][e] - m[e >> 1]);
+      if constexpr (MASKED) {
+        if (c.k0 + 8 * (j + half * NP) + 2 * c.t + (e & 1) >= c.sk) p = 0.f;
+      }
+      sh[j][e] = p;
+      l[e >> 1] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int row = 8 * (j + half * NP) + 2 * c.t;
+    const float* v0 = c.Vh + row * VS + c.g;
+    uint32_t ph[4], pc[4];
+    if constexpr (F32) {
+      q_frags({sh[j][0], sh[j][2], sh[j][1], sh[j][3]}, ph, pc);
+      const float* w0 = c.Vl + row * VS + 2 * c.g;   // slot (row / 2) * VS + g
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const uint2 bc = *reinterpret_cast<const uint2*>(w0 + 16 * n);
+        mma_bf16(acc[n], pc, bc.x, bc.y);
+        mma(acc[n], ph, __float_as_uint(v0[8 * n]), __float_as_uint(v0[VS + 8 * n]));
+      }
+    } else {
+      // V is exact in tf32: P's two parts against it
+      uint32_t pl[4];
+      split(sh[j][0], ph[0], pl[0]);
+      split(sh[j][2], ph[1], pl[1]);
+      split(sh[j][1], ph[2], pl[2]);
+      split(sh[j][3], ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const uint32_t b0 = __float_as_uint(v0[8 * n]);
+        const uint32_t b1 = __float_as_uint(v0[VS + 8 * n]);
+        mma(acc[n], pl, b0, b1);
+        mma(acc[n], ph, b0, b1);
+      }
+    }
+  }
+}
+
+// Both halves' scores first, then the softmax and P V of each: the second
+// half's products overlap the first half's exps, and the second half's exps
+// the first half's P V (the tensor pipe otherwise idles during a softmax).
+// It first splits the next tile's chunks of this thread (in the same basic
+// block, so that the split overlaps the products too).
+template <typename T, bool QLO, bool MASKED, int HD, int NP, int QLR>
+__device__ __forceinline__ void tile_step(const uint32_t (&qh)[HD / 8][4],
+                                          const uint32_t (&qc)[QLR][4], float (&m)[2],
+                                          float (&l)[2], float (&acc)[HD / 8][4],
+                                          const TileCtx& c, T* next, float* next_planes) {
+  constexpr bool F32 = Layout<T, HD>::kF32;
+  split_next<T, HD>(next, next_planes);
+  float s0[NP][4], s1[NP][4];
+  tile_scores<F32, QLO, HD, NP, QLR>(s0, 0, qh, qc, c);
+  tile_scores<F32, QLO, HD, NP, QLR>(s1, 1, qh, qc, c);
+  tile_softmax_pv<F32, MASKED, HD, NP>(s0, 0, m, l, acc, c);
+  tile_softmax_pv<F32, MASKED, HD, NP>(s1, 1, m, l, acc, c);
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int H, int group, long long sq, long long sk,
                  int causal, int has_window, long long window, float scale) {
-  constexpr int kS = HD + kPad;     // shared row stride of Q, K and V
-  constexpr int kOut = HD / 64;     // float4 output columns per thread
-  static_assert(HD % 64 == 0, "16 threads x 4 columns cover the head dim in 64s");
+  using L = Layout<T, HD>;
+  constexpr bool kF32 = L::kF32;
+  constexpr int kBK = L::kBK;
+  constexpr int kNP = kBK / 16;             // score n-tiles (8 keys) in each half of a tile
+  constexpr int KS = L::KS, VS = L::VS;
+  constexpr int kDK = HD / 8;               // k-steps of Q K^T, n-tiles of O
+  constexpr bool kQLo = kF32 && HD == 64;   // Q's correction fragment kept in registers
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * kS;
-  float* Vs = Ks + kBK * kS;
-  float* Ps = Vs + kBK * kS;
+  char* smem = reinterpret_cast<char*>(smem4);
+  // stage i of the ring; V follows K in a stage. Set i of the planes: fp32 lo
+  // planes, bf16 hi planes; K's then V's
+  auto stage = [&](int i) { return reinterpret_cast<T*>(smem + i * L::kStageBytes); };
+  constexpr int kVOff = kF32 ? kBK * KS : kBK * HD;   // V's offset in a stage, in elements
+  auto plane = [&](int i) {
+    return reinterpret_cast<float*>(smem + kStages * L::kStageBytes + i * L::kSetBytes);
+  };
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const long long b = blockIdx.z;
-  const int h = blockIdx.y;
-  const long long q0 = static_cast<long long>(blockIdx.x) * kBQ;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;                  // the row of a fragment (and row + 8)
+  const int t = lane & 3;                   // the pair of columns 2t, 2t + 1
+  const long long h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const long long q0 = static_cast<long long>(gridDim.z - 1 - blockIdx.z) * kBQ;
   const long long kv_head = b * (H / group) + h / group;
   const T* qb = q + (b * H + h) * sq * HD;
   const T* kb = k + kv_head * sk * HD;
   const T* vb = v + kv_head * sk * HD;
   T* ob = o + (b * H + h) * sq * HD;
 
-  // the keys any row of this tile can see; all of them if a row sees none
+  // the keys row qi may see: [lo(qi), hi(qi)], empty for a blind row
+  auto key_lo = [&](long long qi) {
+    return has_window && qi - window + 1 > 0 ? qi - window + 1 : 0LL;
+  };
+  auto key_hi = [&](long long qi) { return causal && qi < sk - 1 ? qi : sk - 1; };
+
+  // the keys any row of this CTA can see; all of them if a row sees none
   const long long q_last = (q0 + kBQ < sq ? q0 + kBQ : sq) - 1;
   long long k_begin = 0, k_end = sk;
-  const bool blind_row = has_window && (window < 1 || q_last >= sk + window - 1);
-  if (!blind_row) {
-    if (causal && q_last + 1 < k_end) k_end = q_last + 1;
-    if (has_window && q0 - window + 1 > 0) k_begin = q0 - window + 1;
+  if (!(has_window && (window < 1 || q_last >= sk + window - 1))) {
+    k_begin = key_lo(q0);
+    k_end = key_hi(q_last) + 1;
   }
+  // this warp's rows [ra, rz]
+  const long long ra = q0 + 16 * warp;
+  const long long rz = (ra + 15 < sq ? ra + 15 : sq - 1);
+  const bool warp_blind = has_window && (window < 1 || rz >= sk + window - 1);
 
-  load_tile<T, HD>(Qs, qb, q0, sq);
+  // Tile i of this CTA's walk sits in stage i % 3 and plane set i % 2. The
+  // first two tiles' copies start before Q is loaded, so the two latencies
+  // overlap.
+  const long long tile0 = k_begin / kBK;
+  const int ntiles = static_cast<int>((k_end + kBK - 1) / kBK - tile0);
+  if (ntiles > 0) issue_tile<T, HD>(stage(0), stage(0) + kVOff, kb, vb, tile0 * kBK, sk);
+  cp_async_commit();
+  if (ntiles > 1) issue_tile<T, HD>(stage(1), stage(1) + kVOff, kb, vb, (tile0 + 1) * kBK, sk);
+  cp_async_commit();
 
-  float m[kRows], l[kRows];
-  float4 acc[kRows][kOut];
+  // Q fragments of this lane: rows ra + g and ra + g + 8, columns 8 ks + 2t, + 1
+  // (the permuted k: a0 / a2 hold 2t / 2t + 1 of row g, a1 / a3 of row g + 8)
+  uint32_t qh[kDK][4];
+  uint32_t qc[kQLo ? kDK : 1][4];
+  {
+    const long long r0 = ra + g, r1 = ra + g + 8;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kMaskFill;
-    l[i] = 0.f;
+    for (int ks = 0; ks < kDK; ++ks) {
+      const int d = 8 * ks + 2 * t;
+      const float2 x0 = r0 < sq ? load2(qb + r0 * HD + d) : make_float2(0.f, 0.f);
+      const float2 x1 = r1 < sq ? load2(qb + r1 * HD + d) : make_float2(0.f, 0.f);
+      // fp32 is scaled once here (exact at hd 64, where the scale is 1/8); bf16
+      // is scaled on the scores, since q * scale need not be exact in tf32
+      const float qs = kF32 ? scale : 1.f;
+      const float x[4] = {x0.x * qs, x1.x * qs, x0.y * qs, x1.y * qs};
+      if constexpr (kQLo) {
+        q_frags(x, qh[ks], qc[ks]);
+      } else {
 #pragma unroll
-    for (int jj = 0; jj < kOut; ++jj) acc[i][jj] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (long long k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, HD>(Ks, kb, k0, sk);
-    load_tile<T, HD>(Vs, vb, k0, sk);
-    __syncthreads();
-
-    // scores: s[i][j] = q[ty + 16 i] . k[tx + 16 j]
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = load4(Qs + (ty + 16 * i) * kS + d);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = load4(Ks + (tx + 16 * j) * kS + d);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          float t = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          t = fmaf(qv[i].y, kv[j].y, t);
-          t = fmaf(qv[i].z, kv[j].z, t);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, t);
-        }
-    }
-
-    // masks and the online softmax, row by row
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const long long qi = q0 + ty + 16 * i;
-      float rmax = kMaskFill;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const long long ki = k0 + tx + 16 * j;
-        const bool visible = ki < sk && (!causal || ki <= qi) &&
-                             (!has_window || qi - ki < window);
-        s[i][j] = visible ? s[i][j] * scale : kMaskFill;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(rmax));
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = k0 + tx + 16 * j < sk ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-        rsum += p;
-      }
-      l[i] = l[i] * alpha + row_sum16(rsum);
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj) {
-        acc[i][jj].x *= alpha;
-        acc[i][jj].y *= alpha;
-        acc[i][jj].z *= alpha;
-        acc[i][jj].w *= alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc[i] += p[ty + 16 i, :] @ v[:, 4 tx + 64 jj : +4]
-#pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
-      float4 pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = load4(Ps + (ty + 16 * i) * kPStride + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        float4 vv[kOut];
-#pragma unroll
-        for (int jj = 0; jj < kOut; ++jj) vv[jj] = load4(Vs + (c + cc) * kS + 4 * tx + 64 * jj);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float p = comp(pv[i], cc);
-#pragma unroll
-          for (int jj = 0; jj < kOut; ++jj) fma4(acc[i][jj], p, vv[jj]);
-        }
+        for (int i = 0; i < 4; ++i)
+          qh[ks][i] = __float_as_uint(x[i]);   // fp32 at hd 128: split at use; bf16: exact
       }
     }
   }
 
+  float m[2] = {kMaskFill, kMaskFill};  // rows g, g + 8
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sums
+  float acc[kDK][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const long long qi = q0 + ty + 16 * i;
+  for (int n = 0; n < kDK; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  // Each iteration starts the copy of tile i + 2, splits tile i + 1 (its own
+  // chunks, after its cp.async.wait_group) and multiplies tile i; its one
+  // barrier publishes tile i + 1 and frees stage i and set i for i + 3 and i + 2.
+  cp_async_wait1();
+  if (ntiles > 0) split_next<T, HD>(stage(0), plane(0));
+  __syncthreads();
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 2 < ntiles) {
+      T* next = stage((i + 2) % kStages);
+      issue_tile<T, HD>(next, next + kVOff, kb, vb, (tile0 + i + 2) * kBK, sk);
+    }
+    cp_async_commit();
+    cp_async_wait1();
+    // tile i + 1's stage and plane set; past the last tile, a stage that is
+    // not in use is split again to no effect (tf32 rounding is idempotent;
+    // the plane set it writes is free), which keeps the split unconditional
+    T* next = stage((i + 1) % kStages);
+    float* next_planes = plane((i + 1) & 1);
+
+    const long long k0 = (tile0 + i) * kBK;
+    T* kst = stage(i % kStages);
+    const float* Kp = plane(i & 1);
+    const float* Vp = Kp + kBK * KS;
+    const TileCtx ctx = {kF32 ? reinterpret_cast<const float*>(kst) : Kp, Kp,
+                         kF32 ? reinterpret_cast<const float*>(kst + kVOff) : Vp, Vp,
+                         k0, ra, sk, window, causal, has_window, g, t, scale};
+    const long long kz = k0 + kBK - 1;
+    Mode mode = kEdge;
+    if (ra >= sq) {
+      mode = kSkip;
+    } else if (!warp_blind) {
+      if (k0 > key_hi(rz) || kz < key_lo(ra))
+        mode = kSkip;
+      else if (kz < sk && key_lo(rz) <= k0 && kz <= key_hi(ra))
+        mode = kFull;
+    }
+    if (mode == kFull)
+      tile_step<T, kQLo, false, HD, kNP>(qh, qc, m, l, acc, ctx, next, next_planes);
+    else if (mode == kEdge)
+      tile_step<T, kQLo, true, HD, kNP>(qh, qc, m, l, acc, ctx, next, next_planes);
+    else
+      split_next<T, HD>(next, next_planes);
+    __syncthreads();   // tile i + 1 is split; stage i and set i are free
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long qi = ra + g + 8 * rr;
+    const float denom = fmaxf(quad_sum(l[rr]), 1e-30f);
     if (qi >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int jj = 0; jj < kOut; ++jj) {
-      const float4 a = acc[i][jj];
-      store4(ob + qi * HD + 4 * tx + 64 * jj,
-             make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom));
-    }
+    for (int n = 0; n < kDK; ++n)
+      store2(ob + qi * HD + 8 * n + 2 * t, acc[n][2 * rr] / denom, acc[n][2 * rr + 1] / denom);
   }
 }
 
@@ -285,13 +664,16 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, long long B, long long H,
            long long KV, long long sq, long long sk, int causal, int has_window,
            long long window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
+  constexpr size_t bytes = Layout<T, HD>::kBytes;
+  const long long tiles = (sq + kBQ - 1) / kBQ;
+  if (B >= 65536 || tiles >= 65536 || H >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((sq + kBQ - 1) / kBQ), static_cast<unsigned>(H),
-                  static_cast<unsigned>(B));
+  const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
+                  static_cast<unsigned>(tiles));
   flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<int>(H), static_cast<int>(H / KV), sq, sk, causal,
@@ -304,7 +686,8 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B, lo
 extern "C" {
 
 // q: (B,H,sq,hd), k/v: (B,KV,sk,hd), o: (B,H,sq,hd); fp32 (bf16 = 0) or bf16
-// (bf16 = 1); hd 64 or 128; window used when has_window; scale = 1/sqrt(hd)
+// (bf16 = 1); hd 64 or 128; window used when has_window; scale = 1/sqrt(hd).
+// B < 65536 and ceil(sq / 128) < 65536 (the grid's y and z).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long B, long long H, long long KV, long long sq,
                         long long sk, long long hd, int bf16, int causal,

@@ -3,13 +3,16 @@
 Replaces ``src/repro/kernels/flash_attention.py``
 (``flash_attention_pallas``). Kernel: ``csrc/flash_attention.cu``
 (``flash_fwd_kernel``): an online softmax over K/V tiles held in shared
-memory, GQA, causal and sliding-window masks by index arithmetic.
+memory (a ring of cp.async stages), GQA, causal and sliding-window masks
+by index arithmetic, 128 query rows a CTA.
 
-Bound on an H100: fp32 operations. The reference computes in fp32, and
-fp32 products run outside the tensor cores, so the least time is
-``4 * hd`` operations per visible (query, key) pair at the fp32 rate;
-the bytes of q, k, v and the output are a fraction of that at the
-serving shapes. The scores never reach device memory.
+Bound on an H100: operations on the tensor cores. The reference computes
+in fp32; the kernel keeps fp32 accuracy with a split x = hi + lo: the hi
+products as tf32 ``mma.sync`` and both small products in one bf16
+``mma.sync`` (twice the depth, at twice the rate), so its least time is
+twice that of ``4 * hd`` tf32 operations per visible (query, key) pair.
+The bytes of q, k, v and the output are below that at the serving
+shapes. The scores never reach device memory.
 
 The reference's kernel is forward-only (it has no custom VJP, and
 ``jax.grad`` through it fails), and so is this one: the op is a
@@ -27,7 +30,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: the reference's tile sizes, which its model routes on (``s % 128 == 0``)
+#: the reference's tile sizes, which its model routes on (``s % 128 == 0``);
+#: the kernel's query tile is 128 rows too
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 #: head dims the kernel is built for
@@ -59,8 +63,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head dim {hd} is not one the kernel is built for {HEAD_DIMS}")
     if sk == 0:
         raise ValueError("no keys to attend to")
-    if B >= 2**16 or H >= 2**16:
-        raise ValueError(f"batch {B} and heads {H} must each be < 65536 (the grid's y, z)")
+    if B >= 2**16 or -(-sq // DEFAULT_BLOCK_Q) >= 2**16:
+        raise ValueError(f"batch {B} and query tiles ceil({sq} / {DEFAULT_BLOCK_Q}) must each "
+                         "be < 65536 (the grid's y, z)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")

@@ -1,15 +1,20 @@
 """sLSTM time scan: the wrapper over the CUDA kernel.
 
 Replaces ``src/repro/kernels/slstm_scan.py`` (``slstm_scan_pallas``).
-Kernel: ``csrc/slstm_scan.cu`` (``slstm_scan_kernel``): one block per
-(head, batch row) walks the whole sequence, 4 * hd threads forming the
-per-head ``h @ r`` of all four gates each step with r read from L2.
+Kernel: ``csrc/slstm_scan.cu`` (``slstm_cluster_kernel``): a cluster of
+4 CTAs per (batch row, head), one per gate, each holding its gate's
+slice of r in shared memory for the whole sequence; each step the four
+exchange their pre-activations through distributed shared memory and
+meet at one cluster barrier. Where one gate's slice does not fit a
+block's shared memory (hd above 224), each gate splits over 2 CTAs: a
+cluster of 8. :func:`cluster_layout` picks the layout from hd; the
+kernel needs ``sm_90a`` (clusters).
 
 Bound on an H100: neither bytes nor operations but the S dependent
 steps. The bytes (gx read once, h written once, r read once) and the
 ``2 * 4 * hd`` operations per state element a step are a small fraction
 of one millisecond at serving's shapes; the kernel's time per step is
-what a redesign has to cut (``PERF.md``).
+the number to watch (``PERF.md``).
 
 The reference's kernel returns h only; this one also returns the final
 state (c, n, h, m), which prefill keeps as the decode cache (the
@@ -21,6 +26,8 @@ raises. ``slstm_scan.launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -28,9 +35,40 @@ from repro_torch.kernels import _build, ref
 #: the reference's sequence chunk (its grid step). The kernel walks the whole
 #: sequence in one launch; ``S % chunk == 0`` is checked as the reference asserts it
 DEFAULT_CHUNK = 256
-#: the largest head dim the kernel takes: 4 * hd threads in one block
+#: the largest head dim the kernel takes (a cluster of 8 at hd 256)
 MAX_HEAD_DIM = 256
 GX_DTYPES = (torch.float32, torch.bfloat16)
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: k-slices per column pair: a warp is 8 column pairs x 4 slices
+SLICES = 4
+
+
+class ClusterLayout(NamedTuple):
+    """How the kernel lays out one (batch row, head)."""
+    cluster: int      #: CTAs in the cluster: 4, or 8 when each gate spans 2
+    split: int        #: CTAs per gate
+    threads: int      #: threads a CTA
+    smem_bytes: int   #: dynamic shared memory a CTA
+
+
+def cluster_layout(hd: int) -> ClusterLayout:
+    """The kernel's layout for head dim ``hd`` (the same arithmetic as
+    ``csrc/slstm_scan.cu::layout_for``, which refuses any other): each CTA
+    holds its columns of one gate's r, hd rounded up to 16 rows by two
+    columns per thread (pairs padded to whole warps), the exchange slots
+    (2 parities x 4 gates x hd) and h. One CTA per gate where that fits
+    :data:`SMEM_LIMIT`, else two."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} outside 1..{MAX_HEAD_DIM}")
+    for split in (1, 2):
+        ncols = -(-hd // split)
+        pairs = (-(-ncols // 2) + 7) // 8 * 8
+        hd_k = -(-hd // 16) * 16
+        smem = 4 * (hd_k * 2 * pairs + 2 * 4 * hd + hd_k)
+        if smem <= SMEM_LIMIT:
+            return ClusterLayout(4 * split, split, pairs * SLICES, smem)
+    raise AssertionError(f"no layout fits head dim {hd}")   # unreachable for hd <= 256
 
 
 def check_inputs(gx: torch.Tensor, r: torch.Tensor, num_heads: int, chunk: int) -> None:
@@ -60,8 +98,8 @@ def _launch(gx: torch.Tensor, r: torch.Tensor,
     H = num_heads
     hd = D // H
     if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}: the kernel runs 4 * hd threads "
-                         "in one block")
+        raise ValueError(f"head dim {hd} > {MAX_HEAD_DIM}: the kernel's largest layout is a "
+                         "cluster of 8 at hd 256")
     if B >= 2**16 or S >= 2**31 or H >= 2**31:
         raise ValueError(f"batch {B} must be < 65536 (the grid's y), S {S} and heads {H} "
                          "< 2**31")
@@ -75,8 +113,10 @@ def _launch(gx: torch.Tensor, r: torch.Tensor,
     h = torch.empty((B, S, D), dtype=torch.float32, device=gx.device)
     state = torch.empty((4, B, H, hd), dtype=torch.float32, device=gx.device)
     if B:
+        layout = cluster_layout(hd)
         _build.launch("slstm_scan_fwd", gx.device, gx.data_ptr(), r.data_ptr(), h.data_ptr(),
-                      state.data_ptr(), B, S, H, hd, int(gx.dtype == torch.bfloat16))
+                      state.data_ptr(), B, S, H, hd, int(gx.dtype == torch.bfloat16),
+                      layout.split, layout.threads, layout.smem_bytes)
         slstm_scan.launches += 1
     return h, state
 

@@ -10,8 +10,9 @@ places where a case holds NaN (a NaN's payload bits are not compared: the card's
 arithmetic returns its canonical NaN). Flash attention is held to the
 tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
 ``chip_smoke.py`` uses too), and its backward must
-raise; so is the sLSTM scan (``SLSTM_TOL``, h and the final state), whose
-backward must raise too. Two gloo ranks on the card run the int8 collective against the
+raise; so is the sLSTM scan (``SLSTM_TOL``, h and the final state), at
+head dims that take each cluster layout too, whose backward must raise.
+Two gloo ranks on the card run the int8 collective against the
 same collective on the CPU, bitwise. Imports torch and the port only, so
 it runs on the card machine,
 which has no JAX:
@@ -205,6 +206,24 @@ def test_slstm_kernel_matches_its_plain_version_on_the_card(cuda, name):
     torch.cuda.synchronize()
     assert slstm_scan.launches - before == 1
     assert h.dtype == torch.float32 and h.shape == h_p.shape
+    atol, rtol = SLSTM_TOL
+    torch.testing.assert_close(h, h_p, atol=atol, rtol=rtol)
+    for got, want in zip(state, state_p):
+        torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [1, 17, 100, 224, 225, 240])
+def test_slstm_kernel_takes_the_layout_of_any_head_dim_on_the_card(cuda, hd):
+    """The wrapper's layout for head dims that pad rows, columns and warps
+    differently, a cluster of 4 (hd <= 224) and of 8 (hd > 224), is the one
+    the kernel accepts, and the kernel agrees with its plain version."""
+    rng = np.random.default_rng(hd)
+    gx = torch.from_numpy(rng.standard_normal((2, 24, 4, 2 * hd)).astype(np.float32)).to(cuda)
+    r = torch.from_numpy((rng.standard_normal((4, 2, hd, hd)) * 0.05).astype(np.float32))
+    h, state = slstm_scan(gx, r.to(cuda), num_heads=2, chunk=24)
+    h_p, state_p = ref.slstm_scan(gx, r.to(cuda), 2)
+    torch.cuda.synchronize()
     atol, rtol = SLSTM_TOL
     torch.testing.assert_close(h, h_p, atol=atol, rtol=rtol)
     for got, want in zip(state, state_p):

@@ -32,9 +32,11 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cases import attention_case, attention_inputs  # noqa: E402
 
 #: two GQA groups, causal and non-causal, a window, Sq != Sk, the rows
-#: that see no key, and bf16
+#: that see no key, bf16, a query length that is no multiple of the
+#: kernel's 128-row tile with a window that is no multiple of a key tile,
+#: and bf16 at hd 128
 SUBSET = ("group2", "group8", "non_causal", "window32", "cross_lengths",
-          "fully_masked_rows", "bf16")
+          "fully_masked_rows", "bf16", "window100_sq320", "bf16_hd128")
 TOL_PALLAS = {"float32": 2e-3, "bfloat16": 2e-2}
 
 
@@ -128,6 +130,10 @@ def _meta(*shape, dtype=torch.float32):
     ((_meta(1, 4, 128, 64), _meta(1, 2, 128, 64), _meta(1, 2, 64, 64)), "differ"),
     ((_meta(4, 128, 64), _meta(1, 2, 128, 64), _meta(1, 2, 128, 64)), "4-d"),
     ((_meta(1, 4, 128, 64), _meta(1, 2, 0, 64), _meta(1, 2, 0, 64)), "no keys"),
+    ((_meta(65536, 1, 128, 64), _meta(65536, 1, 128, 64), _meta(65536, 1, 128, 64)),
+     "batch 65536"),
+    ((_meta(1, 1, 128 * 65536, 64), _meta(1, 1, 64, 64), _meta(1, 1, 64, 64)),
+     "query tiles"),
     ((_meta(1, 4, 128, 64), _meta(1, 2, 128, 64), _meta(1, 2, 128, 64)), "CUDA tensor"),
 ])
 def test_non_cpu_tensors_are_checked_and_never_fall_back(bad, match):
