@@ -28,6 +28,21 @@ losses and weights are finite and that every tensor moved. Smoke-width
 federations of both paths on the card agree with the same federations on
 the CPU (``wire_pipeline.json`` as it stands, ``zlib`` and 2 rounds).
 
+Then the paper's filter form of two-way quantization
+(``examples/jobs/legacy_quantized.json``: a QuantizeFilter at both egress
+points, a DequantizeFilter at both ingress points, dense ``fedavg``): one
+full-width round in ``container`` and one in ``regular`` transmission
+from the same weights, counters zeroed before each (one B1 launch per item
+per egress, one B2 per item per ingress), bitwise-equal final weights and
+a larger MemoryMeter peak for regular; the spec at smoke width on the card
+against the CPU, and ``python -m repro_torch.fl.job`` on the spec file.
+Then the paper's Table II on the card (the full-width state through
+``QuantizeFilter`` in fp16, blockwise8, nf4 and fp4, serialized bytes
+against the byte model and the paper) and Table III on its host (the
+full-width blockwise8 message sent regular, container and file over the
+loopback driver at 1 MiB chunks, MemoryMeter peaks ordered regular >
+container > file, with VmHWM, the host's RAM and the free disk).
+
 Then the serving path (``repro_torch.launch.serve.generate``): the
 flash-attention kernel against its plain version on every case of
 ``kernels.cases.ATTENTION_CASES`` and at the two serving shapes, timed
@@ -107,7 +122,18 @@ SPEC_NF4 = {
     "transmission": "container", "driver": "loopback", "chunk_mb": 1, "seed": 0,
 }
 WIRE_PIPELINE_JOB = os.path.join(REPO, "examples", "jobs", "wire_pipeline.json")
+#: the third path: the paper's two-way filter scheme, run at full width with
+#: 1 round of its 2 (time), in container and in regular transmission
+LEGACY_JOB = os.path.join(REPO, "examples", "jobs", "legacy_quantized.json")
 N_ITEMS = 12                       # flat state-dict items of llama3.2-1b
+LLAMA_PARAMS = 1_498_482_688       # parameters of full-width llama3.2-1b
+#: Table II: the formats quantized on the card, and the paper's size of each
+#: as a share of fp32 (paper Table II, as benchmarks/table2_message_size.py
+#: records it: the 147-tensor layout, whose blockwise8 meta also counts a
+#: 1 KiB code map per tensor)
+TABLE2_FORMATS = ("fp16", "blockwise8", "nf4", "fp4")
+PAPER_TABLE2_PCT = {"fp16": 50.00, "blockwise8": 25.03, "nf4": 14.06}
+TABLE3_CHUNK = 1 << 20             # Table III's chunk: the paper's default, 1 MiB
 LARGEST_ITEM = (16, 2048, 8192)    # blocks.mlp.w_gate / w_up
 GROUP_BLOCKS = 365_841             # 4096-blocks of one message's fused group
 GROUP_BLOCKS4 = 23_413_792         # 64-blocks of the same group (no padding)
@@ -877,6 +903,379 @@ def check_nf4_against_cpu(torch, dev) -> dict:
           f"{', '.join(f'{w:.3f}' for w in worst)} code gaps, losses within {rel:.3g} "
           "relative")
     return {"trained_max_gaps": worst, "loss_rel": rel, "wire_bytes": wire["cpu"]}
+
+
+def legacy_spec() -> dict:
+    """``examples/jobs/legacy_quantized.json`` at full width, 1 round of its 2."""
+    with open(LEGACY_JOB) as fh:
+        return {**json.load(fh), "smoke": False, "rounds": 1}
+
+
+def legacy_phases(events: list[dict]) -> dict[str, float]:
+    """Per-phase wall seconds of a legacy filter round from the
+    device-synchronised span trace: the filters run inside the transmits
+    (egress quantize before the first item is framed, ingress dequantize
+    after the last is reassembled); the rest of a transmit is host
+    framing (serialization, device-to-host copies, chunking, reassembly,
+    and in regular mode the two joins of the blob)."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    transmits = [e for e in spans if e["name"] == "wire.transmit"]
+
+    def kind_of(e):
+        for t in transmits:
+            if t["ts"] <= e["ts"] and e["ts"] + e["dur"] <= t["ts"] + t["dur"]:
+                return t["args"]["kind"]
+        return None
+
+    def total(name, kind=None):
+        return sum(e["dur"] for e in spans if e["name"] == name
+                   and (kind is None or kind_of(e) == kind)) / 1e6
+
+    quantize, dequantize = "stage.encode.filter:QuantizeFilter", \
+        "stage.decode.filter:DequantizeFilter"
+    phases = {}
+    for kind, label in (("task_data", "downlink"), ("task_result", "uplink")):
+        phases[f"{label}_transmit_s"] = sum(
+            t["dur"] for t in transmits if t["args"]["kind"] == kind) / 1e6
+        phases[f"{label}_quantize_filter_s"] = total(quantize, kind)
+        phases[f"{label}_dequantize_filter_s"] = total(dequantize, kind)
+        phases[f"{label}_framing_s"] = (phases[f"{label}_transmit_s"]
+                                        - phases[f"{label}_quantize_filter_s"]
+                                        - phases[f"{label}_dequantize_filter_s"])
+    phases["local_steps_s"] = total("client.train")
+    phases["finish_s"] = total("agg.finish")
+    return phases
+
+
+def run_legacy(torch, dev) -> dict:
+    """The paper's filter form of two-way quantization at full width: the
+    legacy spec's one round, once with ``container`` and once with
+    ``regular`` transmission from the same seeded weights, the launch
+    counters zeroed just before each and read just after. Each blockwise8
+    item is quantized by one B1 launch at each egress point and
+    dequantized by one B2 launch at each ingress point (the filters work
+    item by item, as the reference's do), and the fold kernel does not run
+    (dense ``fedavg``). The two runs must end bitwise equal, and regular
+    transmission must hold more transmission memory than container."""
+    from repro_torch.fl.job import build_job
+    from repro_torch.kernels import ops
+
+    spec = legacy_spec()
+    per_direction = spec["clients"] * spec["rounds"] * N_ITEMS
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(quantize_blockwise8=2 * per_direction, dequantize_blockwise8=2 * per_direction)
+    init, final, runs = None, None, {}
+    for mode in ("container", "regular"):
+        torch.cuda.synchronize()
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        label = f"legacy_{mode}"
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        job = build_job({**spec, "transmission": mode, "trace": True}, device=dev,
+                        weights=init)
+        if init is None:
+            init = {k: v.clone() for k, v in job.init_weights.items()}
+        result = job.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        print(f"{label} launches: {launches} (expected {want})")
+        if launches != want:
+            fail(f"kernel launches on the {label} path {launches} != {want}")
+        losses = result["history"]
+        if len(losses) != spec["clients"] or not all(math.isfinite(x) for x in losses):
+            fail(f"{label}: losses not finite: {losses}")
+        out = result["final_weights"]
+        if list(out) != list(init) or len(out) != N_ITEMS:
+            fail(f"{label}: final weights do not have the initial weights' names")
+        for name, w in out.items():
+            if w.shape != init[name].shape or not bool(torch.isfinite(w).all()):
+                fail(f"{label}: {name}: shape {tuple(w.shape)} or non-finite values")
+            if torch.equal(w, init[name]):
+                fail(f"{label}: {name} did not move from its initial values")
+        if final is None:
+            final = out
+        else:
+            for name, w in out.items():
+                if not torch.equal(bits(torch, w), bits(torch, final[name])):
+                    fail(f"legacy round: regular and container transmission differ at {name}")
+        memory = result["telemetry"]["memory"]
+        runs[mode] = {
+            "wall_s": wall, "round_wall_s": [r["wall_s"] for r in result["round_log"]],
+            "phases": legacy_phases(job.sim.tracer.chrome_trace()["traceEvents"]),
+            "losses": losses, "launches": launches, "messages": result["messages"],
+            "wire_bytes": result["wire_bytes"], "meter_peak_bytes": memory["peak"],
+            "meter_copied_bytes": memory["copied"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        }
+        print(f"{label}: {result['messages']} messages, {result['wire_bytes']} wire bytes, "
+              f"round wall {runs[mode]['round_wall_s'][0]:.3f} s (whole call {wall:.3f} s), "
+              f"MemoryMeter peak {memory['peak']} bytes, copied {memory['copied']} bytes, "
+              f"losses {losses}")
+        print(f"{label} phases (s): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in runs[mode]["phases"].items()))
+        del job, result, out
+    if not runs["regular"]["meter_peak_bytes"] > runs["container"]["meter_peak_bytes"]:
+        fail("legacy round: regular transmission's MemoryMeter peak is not above container's")
+    print("legacy round: container and regular final weights bitwise equal; "
+          f"regular peak / container peak = "
+          f"{runs['regular']['meter_peak_bytes'] / runs['container']['meter_peak_bytes']:.3f}")
+    del init, final
+    release(torch)
+    return runs
+
+
+def check_legacy_against_cpu(torch, dev) -> dict:
+    """``legacy_quantized.json`` at smoke width, card vs CPU from identical
+    weights: fixed updates over the spec's 2 rounds must give the same
+    bits and wire bytes in both transmissions; a trained round must agree
+    within one quantization step per block plus 1e-5 relative, losses
+    within 1e-4 relative (see tests/test_torch_slice_legacy.py). Then the
+    command-line entry point runs the spec file unchanged on the card."""
+    from repro_torch.fl.job import build_job, initial_weights, run_job
+    from repro_torch.kernels.ref import BLOCK8
+
+    with open(LEGACY_JOB) as fh:
+        spec = json.load(fh)
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+    wire = {}
+    for mode in ("container", "regular"):
+        outs = {}
+        for d in ("cpu", dev):
+            jb = build_job({**spec, "transmission": mode}, device=d, weights=init)
+            for i, proxy in enumerate(jb.sim.proxies):
+                proxy.executor.train_fn = fixed_train_fn(init, i, 0.05 * (i + 1))
+            out = jb.run()
+            outs[str(d)] = ({k: v.cpu() for k, v in out["final_weights"].items()},
+                            out["wire_bytes"])
+        (want, want_bytes), (got, got_bytes) = outs["cpu"], outs[str(dev)]
+        if got_bytes != want_bytes:
+            fail(f"legacy {mode} fixed-update federation: {got_bytes} wire bytes on the "
+                 f"card, {want_bytes} on the CPU")
+        for name, w in want.items():
+            if not torch.equal(bits(torch, got[name]), bits(torch, w)):
+                fail(f"legacy {mode} fixed-update federation differs between card and "
+                     f"CPU at {name}")
+        wire[mode] = want_bytes
+
+    one_round = {**spec, "rounds": 1}
+    cpu = run_job(one_round, device="cpu", weights=init)
+    gpu = run_job(one_round, device=dev, weights=init)
+    worst = 0.0
+    for name, want in cpu["final_weights"].items():
+        got = gpu["final_weights"][name].cpu()
+        step = block_step(torch, want, got, BLOCK8, 1 / 127)
+        err = (got - want).abs().reshape(-1)
+        if bool((err > step + 1e-5 * want.abs().reshape(-1)).any()):
+            fail(f"legacy trained round on the card is more than one quantization step "
+                 f"from the CPU at {name}")
+        worst = max(worst, float((err / step.clamp_min(1e-30)).max()))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gpu["history"], cpu["history"]))
+    if rel > 1e-4:
+        fail(f"legacy losses on the card differ from the CPU by {rel:.3g} relative")
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.fl.job", LEGACY_JOB],
+                          capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.fl.job {os.path.relpath(LEGACY_JOB, REPO)} exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)
+    n_results = spec["rounds"] * spec["clients"]
+    if (summary["messages"] != 2 * n_results or len(summary["history"]) != n_results
+            or not all(math.isfinite(x) for x in summary["history"])
+            or summary["telemetry"]["traffic"]["bytes_sent"] != summary["wire_bytes"]):
+        fail(f"the job entry point's summary on the card is wrong: {summary}")
+    print(f"legacy_quantized.json, smoke width, card vs CPU: fixed-update weights and wire "
+          f"bytes equal in both transmissions ({wire}); trained round within {worst:.3f} "
+          f"quantization steps, losses within {rel:.3g} relative; python -m "
+          f"repro_torch.fl.job on the card: {summary['messages']} messages, "
+          f"{summary['wire_bytes']} wire bytes, losses {summary['history']}")
+    return {"fixed_wire_bytes": wire, "trained_max_steps": worst, "loss_rel": rel,
+            "cli": {k: summary[k] for k in ("messages", "wire_bytes", "history")}}
+
+
+def serialized_nbytes(payload: dict) -> int:
+    """The container blob's length (item count + every item), summed from
+    each item's views without joining them."""
+    from repro_torch.core.serialization import serialize_item_views, views_nbytes
+
+    return 4 + sum(views_nbytes(serialize_item_views(n, v)) for n, v in payload.items())
+
+
+def table2(torch, dev) -> tuple[dict, dict]:
+    """Paper Table II on the card: the full-width llama3.2-1b global state
+    through ``QuantizeFilter`` in each format (one launch per item for the
+    blocked formats), its serialized bytes counted from the item views,
+    beside ``message_size_report`` (the byte model), the fp32 bytes and
+    the paper's share of fp32. Returns the rows and the blockwise8
+    message, copied to the host, for Table III."""
+    from repro_torch.core.filters import QuantizeFilter
+    from repro_torch.core.messages import Message, MessageKind
+    from repro_torch.core.quantization import QuantizedTensor, message_size_report
+    from repro_torch.fl.job import initial_weights
+    from repro_torch.kernels import ops
+
+    release(torch)
+    state = initial_weights(legacy_spec(), device=dev)
+    n_params = sum(v.numel() for v in state.values())
+    if n_params != LLAMA_PARAMS or len(state) != N_ITEMS:
+        fail(f"Table II: the llama3.2-1b state has {n_params} parameters in {len(state)} items")
+    fp32_bytes = 4 * n_params
+    launches_of = {"blockwise8": "quantize_blockwise8", "nf4": "quantize_4bit",
+                   "fp4": "quantize_4bit"}
+    rows, bw8_host = {}, None
+    print(f"Table II: {n_params} parameters in {len(state)} items, fp32 {fp32_bytes} bytes")
+    for fmt in TABLE2_FORMATS:
+        msg = Message(MessageKind.TASK_DATA, dict(state), {})
+        filt = QuantizeFilter(fmt, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        q = filt.process(msg)
+        torch.cuda.synchronize()
+        quantize_ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        want = {name: 0 for name in ops.KERNELS}
+        if fmt in launches_of:
+            want[launches_of[fmt]] = N_ITEMS
+        if launches != want:
+            fail(f"Table II {fmt}: launches {launches} != {want}")
+        nbytes = serialized_nbytes(q.payload)
+        report = message_size_report(state, fmt)
+        pct = 100.0 * nbytes / fp32_bytes
+        payload_meta = sum(v.total_bytes for v in q.payload.values())
+        rows[fmt] = {"serialized_bytes": nbytes, "payload_meta_bytes": payload_meta,
+                     "fp32_bytes": fp32_bytes, "fp32_pct": pct,
+                     "report_fp32_pct": report["fp32_pct"], "report_total_mb": report["total_mb"],
+                     "paper_fp32_pct": PAPER_TABLE2_PCT.get(fmt),
+                     "quantize_filter_ms": quantize_ms, "launches": launches}
+        print(f"Table II {fmt}: {nbytes} serialized bytes ({payload_meta} payload + meta), "
+              f"{pct:.3f} % of fp32; byte model {report['fp32_pct']:.3f} % "
+              f"({report['total_mb']:.2f} MB); paper {PAPER_TABLE2_PCT.get(fmt)} %; "
+              f"QuantizeFilter {quantize_ms:.2f} ms on the card")
+        if abs(pct - report["fp32_pct"]) > 0.01:
+            fail(f"Table II {fmt}: {pct:.4f} % of fp32 measured, {report['fp32_pct']:.4f} % "
+                 "by the byte model")
+        if fmt in PAPER_TABLE2_PCT and abs(pct - PAPER_TABLE2_PCT[fmt]) > 0.05:
+            fail(f"Table II {fmt}: {pct:.4f} % of fp32, the paper has {PAPER_TABLE2_PCT[fmt]} %")
+        if fmt == "blockwise8":
+            bw8_host = {n: QuantizedTensor(v.payload.cpu().numpy(), v.absmax.cpu().numpy(),
+                                           v.fmt, v.orig_shape, v.orig_dtype)
+                        for n, v in q.payload.items()}
+        del msg, q
+        release(torch)
+    del state
+    release(torch)
+    return rows, bw8_host
+
+
+def reset_rss_peak() -> bool:
+    """Reset this process's VmHWM (Linux ``clear_refs`` 5), so the next
+    ``rss_peak_kb`` reads one run's peak; False where that is refused."""
+    try:
+        with open("/proc/self/clear_refs", "w") as fh:
+            fh.write("5")
+    except OSError:
+        return False
+    return True
+
+
+def table3(torch, message: dict) -> dict:
+    """Paper Table III on the card's host: the full-width blockwise8
+    message sent three ways over the loopback driver at 1 MiB chunks, each
+    under a fresh MemoryMeter with the resident-set peak beside it (VmHWM,
+    reset before each run where the kernel allows it; else the process's
+    ``ru_maxrss``, a peak over all it ran so far) — ObjectStreamer ->
+    BlobReceiver (regular), ContainerStreamer -> ContainerReceiver, and
+    FileStreamer -> FileReceiver from a file in a temporary directory. What
+    arrives must equal what was sent, and the peaks must order regular >
+    container > file."""
+    import filecmp
+    import resource
+    import shutil
+    import tempfile
+
+    from repro_torch.core import serialization as ser
+    from repro_torch.core import streaming as sm
+    from repro_torch.utils.mem import MemoryMeter, rss_peak_kb
+
+    host_ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    msg_bytes = serialized_nbytes(message)
+    max_item = max(ser.views_nbytes(ser.serialize_item_views(n, v))
+                   for n, v in message.items())
+    rows: dict = {}
+
+    def same(got: dict) -> bool:
+        return list(got) == list(message) and all(
+            np.array_equal(got[n].payload, v.payload) and np.array_equal(got[n].absmax, v.absmax)
+            for n, v in message.items())
+
+    with tempfile.TemporaryDirectory(prefix="table3_") as tmp:
+        free_disk = shutil.disk_usage(tmp).free
+        print(f"Table III: host RAM {host_ram} bytes, free disk {free_disk} bytes in the "
+              f"temporary directory; message {msg_bytes} bytes, largest item {max_item} bytes, "
+              f"chunk {TABLE3_CHUNK} bytes")
+        if free_disk < 2.2 * msg_bytes:
+            fail(f"Table III: {free_disk} free bytes of disk, the file mode needs two "
+                 f"copies of the {msg_bytes}-byte message")
+        src, dst = os.path.join(tmp, "model.bin"), os.path.join(tmp, "received.bin")
+        with open(src, "wb") as fh:   # the container blob, item by item
+            fh.write(len(message).to_bytes(4, "little"))
+            for _n, views in ser.iter_serialized_items(message):
+                for v in views:
+                    fh.write(v)
+        if os.path.getsize(src) != msg_bytes:
+            fail(f"Table III: the message file holds {os.path.getsize(src)} bytes, "
+                 f"expected {msg_bytes}")
+        for mode in ("regular", "container", "file"):
+            gc.collect()
+            meter = MemoryMeter()
+            reset = reset_rss_peak()
+            driver = sm.LoopbackDriver()
+            t0 = time.perf_counter()
+            with meter.activate():
+                if mode == "regular":
+                    recv = sm.BlobReceiver()
+                    driver.connect(recv.on_chunk)
+                    sm.ObjectStreamer(driver, TABLE3_CHUNK).send_container(message)
+                elif mode == "container":
+                    recv = sm.ContainerReceiver()
+                    driver.connect(recv.on_chunk)
+                    sm.ContainerStreamer(driver, TABLE3_CHUNK).send_container(message)
+                else:
+                    recv = sm.FileReceiver(dst)
+                    driver.connect(recv.on_chunk)
+                    sm.FileStreamer(driver, TABLE3_CHUNK).send_file(src)
+            wall = time.perf_counter() - t0
+            rss_kb = rss_peak_kb()
+            maxrss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            ok = filecmp.cmp(src, dst, shallow=False) if mode == "file" else same(recv.result)
+            if not ok:
+                fail(f"Table III {mode}: what arrived differs from what was sent")
+            rows[mode] = {"meter_peak_bytes": meter.peak, "meter_copied_bytes": meter.copied,
+                          "wall_s": wall, "rss_peak_kb": rss_kb, "rss_peak_reset": reset,
+                          "process_maxrss_kb": maxrss_kb}
+            print(f"Table III {mode}: MemoryMeter peak {meter.peak} bytes "
+                  f"({meter.peak / msg_bytes:.3f} x the message), copied {meter.copied} bytes, "
+                  f"wall {wall:.3f} s, VmHWM {rss_kb} kB"
+                  f"{'' if reset else ' (not reset)'}, process ru_maxrss {maxrss_kb} kB")
+            del recv
+    peaks = {m: r["meter_peak_bytes"] for m, r in rows.items()}
+    ordering = peaks["regular"] > peaks["container"] > peaks["file"]
+    summary = {"regular>container>file": ordering,
+               "regular_over_message": peaks["regular"] / msg_bytes,
+               "container_over_max_item": peaks["container"] / max_item,
+               "file_over_chunk": peaks["file"] / TABLE3_CHUNK,
+               "message_bytes": msg_bytes, "max_item_bytes": max_item,
+               "chunk_bytes": TABLE3_CHUNK, "host_ram_bytes": host_ram,
+               "free_disk_bytes": free_disk}
+    print("Table III ordering: " + ", ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}" for k, v in summary.items()))
+    if not ordering:
+        fail(f"Table III: peaks {peaks} do not order regular > container > file")
+    return {**rows, "summary": summary}
 
 
 def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1715,6 +2114,11 @@ def main(argv=None) -> int:
         "dequantize_4bit": 2 * clients * rounds * N_ITEMS})
     parity = check_against_cpu(torch, dev)
     parity_nf4 = check_nf4_against_cpu(torch, dev)
+    legacy = run_legacy(torch, dev)
+    parity_legacy = check_legacy_against_cpu(torch, dev)
+    table2_rows, bw8_message = table2(torch, dev)
+    table3_rows = table3(torch, bw8_message)
+    del bw8_message
 
     flash = check_flash_kernel(torch, dev, rates)
     serve = {label: run_serve(torch, dev, label, window, batch, prompt, gen)
@@ -1759,6 +2163,8 @@ def main(argv=None) -> int:
                        "mma_sync_tflops": rates,
                        "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
                        "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
+                       "legacy": legacy, "cpu_parity_legacy": parity_legacy,
+                       "table2": table2_rows, "table3": table3_rows,
                        "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
                        "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,
                        "serve_xlstm_cpu_parity": xlstm_cpu},

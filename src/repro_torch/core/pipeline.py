@@ -35,11 +35,16 @@ their fused group there (the CUDA kernel on the card, the plain version
 on the CPU) and decodes land there; payload bytes on the wire are numpy.
 
 Ported stages: ``quantize`` (``blockwise8``, ``nf4``, ``fp4``, ``fp16``,
-``fp32``, with per-layer rules), ``zlib``, ``crc32`` and ``delta``. The
-reference's other stage names (``ef-quantize``, ``adaptive``,
-``dp-noise``, ``secure-mask``, ``zstd``, ``topk``, ``lora``) raise
-``NotImplementedError`` until ported (ROADMAP A4), as do the legacy
-Filter adapters.
+``fp32``, with per-layer rules), ``ef-quantize``, ``adaptive``,
+``dp-noise``, ``zlib``, ``crc32`` and ``delta``. The reference's other
+stage names (``secure-mask``, ``zstd``, ``topk``, ``lora``) raise
+``NotImplementedError`` until ported (ROADMAP A4).
+
+Legacy interop: :func:`legacy_wire_pipelines` adapts the four-point
+``Filter``/``FilterChain`` configuration (:mod:`repro_torch.core.filters`)
+onto per-hop pipelines via whole-message adapter stages, bitwise
+identical to the reference's; the whole transformed payload is
+materialized (and metered) before streaming.
 """
 from __future__ import annotations
 
@@ -53,6 +58,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import serialization as ser
+from repro_torch.core.filters import (
+    AdaptiveQuantizeFilter,
+    DequantizeFilter,
+    Filter,
+    FilterChain,
+    FilterPoint,
+    QuantizeFilter,
+    SelectiveQuantizeFilter,
+    gaussian_noise,
+)
 from repro_torch.core.messages import Message, MessageKind
 from repro_torch.core.quantization import (
     QuantizedTensor,
@@ -73,8 +88,7 @@ _U32 = struct.Struct("<I")
 META_ITEM = "__meta__"
 
 #: stage names the reference registers that this package has not ported
-NOT_PORTED_STAGES = ("adaptive", "dp-noise", "ef-quantize", "lora",
-                     "secure-mask", "topk", "zstd")
+NOT_PORTED_STAGES = ("lora", "secure-mask", "topk", "zstd")
 
 
 class WireIntegrityError(ValueError):
@@ -114,9 +128,12 @@ class Stage:
 
     ``name`` is the registry key (set by :func:`register_stage`) and what
     the wire envelope records, so it must be stable across versions.
+    ``stateful`` stages (RNG streams, error-feedback residuals, delta
+    snapshots) depend on the order of the transfers they see.
     """
 
     name: str = "stage"
+    stateful: bool = False
 
     # -- whole-message hooks ------------------------------------------------
     def begin_encode(self, message: Message, ctx: WireContext) -> Message:
@@ -392,6 +409,150 @@ class QuantizeStage(Stage):
         return value
 
 
+@register_stage("ef-quantize")
+class ErrorFeedbackQuantizeStage(Stage):
+    """Quantize with error feedback (EF-SGD/EF21): transmits
+    ``Q(x_t + e_{t-1})`` and keeps the residual per (client, tensor
+    name) — one stage instance serves a whole hop direction, and the
+    ``client`` header keeps each site's error stream independent (the
+    legacy filter keys by name only). Residuals are float32 tensors on
+    the pipeline's device. Stateful.
+    """
+
+    stateful = True
+
+    def __init__(self, fmt: str, min_params: int = 0) -> None:
+        check_format(fmt)
+        self.fmt = fmt
+        self.min_params = min_params
+        self._residual: dict[tuple[str, str], torch.Tensor] = {}
+
+    @classmethod
+    def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> ErrorFeedbackQuantizeStage:
+        fmt = arg or kwargs.pop("fmt", None)
+        if not fmt:
+            raise ValueError('ef-quantize stage needs a format, e.g. "ef-quantize:nf4"')
+        return cls(fmt, **kwargs)
+
+    @classmethod
+    def for_decode(cls) -> ErrorFeedbackQuantizeStage:
+        return cls("blockwise8")  # decode reads the wire tensor's own fmt
+
+    def begin_encode(self, message: Message, ctx: WireContext) -> Message:
+        ctx.headers["quantized_fmt"] = self.fmt
+        ctx.headers["error_feedback"] = True
+        return message
+
+    def end_decode(self, message: Message, ctx: WireContext) -> Message:
+        if ctx.decode_values:
+            message.headers.pop("quantized_fmt", None)
+        return message
+
+    def encode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if not _is_quantizable(value, self.min_params):
+            return value
+        key = (str(ctx.headers.get("client", "")), name)
+        corrected = _f32(value, ctx.device) + self._residual.get(key, 0.0)
+        qt = quantize(corrected, self.fmt)
+        self._residual[key] = corrected - dequantize(qt, ctx.device).to(torch.float32)
+        return qt
+
+    def decode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if isinstance(value, QuantizedTensor):
+            return dequantize(value, ctx.device)
+        return value
+
+
+@register_stage("adaptive")
+class AdaptiveQuantizeStage(Stage):
+    """Bandwidth-adaptive precision as a pipeline stage: the format is
+    chosen once per message in ``begin_encode`` (from the ``client``
+    header and the bound per-client link model), then applied item by
+    item inside the streamer loop. The decision is the legacy
+    :class:`~repro_torch.core.filters.AdaptiveQuantizeFilter`'s.
+    """
+
+    def __init__(
+        self,
+        bandwidth_bps: Optional[float] = None,
+        budget_s: float = 1.0,
+        min_params: int = 0,
+        link_fn: Optional[Callable[[str], float]] = None,
+    ) -> None:
+        self._decider = AdaptiveQuantizeFilter(
+            bandwidth_bps=bandwidth_bps, budget_s=budget_s,
+            min_params=min_params, link_fn=link_fn,
+        )
+        self.min_params = min_params
+
+    @classmethod
+    def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> AdaptiveQuantizeStage:
+        kwargs.setdefault("bandwidth_bps", float(arg) if arg else 80e6)  # wifi-class
+        return cls(**kwargs)
+
+    def bind_network(self, network: Any) -> None:
+        self._decider.bind_network(network)
+
+    @property
+    def last_fmt_by_client(self) -> dict[str, str]:
+        return self._decider.last_fmt_by_client
+
+    def begin_encode(self, message: Message, ctx: WireContext) -> Message:
+        fmt = self._decider.fmt_for(message)
+        self._decider.last_fmt = fmt
+        self._decider.last_fmt_by_client[str(ctx.headers.get("client", ""))] = fmt
+        ctx.state["adaptive_fmt"] = fmt
+        if fmt != "fp32":
+            ctx.headers["quantized_fmt"] = fmt
+            _prequantize(self, message, ctx, lambda _name: fmt, self.min_params)
+        return message
+
+    def end_decode(self, message: Message, ctx: WireContext) -> Message:
+        if ctx.decode_values:
+            message.headers.pop("quantized_fmt", None)
+        return message
+
+    def encode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        pre = _pop_prequant(self, name, value, ctx)
+        if pre is not None:
+            return pre
+        fmt = ctx.state.get("adaptive_fmt", "fp32")
+        if fmt == "fp32" or not _is_quantizable(value, self.min_params):
+            return value
+        return quantize(as_tensor(value, ctx.device), fmt)
+
+    def decode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if isinstance(value, QuantizedTensor):
+            return dequantize(value, ctx.device)
+        return value
+
+
+@register_stage("dp-noise")
+class DPNoiseStage(Stage):
+    """Gaussian-mechanism DP noise, per item, at full precision — stack
+    it *before* a quantize stage so noise is added pre-quantization.
+    Decode is the identity. Stateful (one RNG stream, drawn in transfer
+    and item order).
+    """
+
+    stateful = True
+
+    def __init__(self, sigma: float, seed: int = 0) -> None:
+        self.sigma = sigma
+        self._rng = np.random.default_rng(seed)
+
+    @classmethod
+    def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> DPNoiseStage:
+        if arg is not None:
+            kwargs.setdefault("sigma", float(arg))
+        return cls(**kwargs)
+
+    def encode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if not _is_plain_float(value):
+            return value
+        return gaussian_noise(self._rng, self.sigma, value)
+
+
 @register_stage("zlib")
 class ZlibStage(Stage):
     """Byte-level DEFLATE compression of each serialized item — spec
@@ -527,6 +688,8 @@ class DeltaStage(Stage):
     Stateful: one transfer at a time (the sequential simulator's order).
     """
 
+    stateful = True
+
     def __init__(self) -> None:
         self._prev_enc: dict[tuple[str, str], torch.Tensor] = {}
         self._prev_dec: dict[tuple[str, str], torch.Tensor] = {}
@@ -593,6 +756,89 @@ class DeltaStage(Stage):
 
 
 # ---------------------------------------------------------------------------
+# Legacy Filter/FilterChain adapters (deprecated surface)
+# ---------------------------------------------------------------------------
+
+def _filter_is_stateful(filt: Filter) -> bool:
+    """Whether a legacy filter depends on the order of the transfers it
+    sees: an explicit ``stateful`` attribute wins; the known stateless
+    built-ins are not; unknown third-party filters are (the conservative
+    default). The reference also lists its ``SecureMaskFilter`` here,
+    which arrives with ``secure_agg.py`` (ROADMAP A4)."""
+    explicit = getattr(filt, "stateful", None)
+    if explicit is not None:
+        return bool(explicit)
+    return not isinstance(
+        filt,
+        (QuantizeFilter, DequantizeFilter, SelectiveQuantizeFilter, AdaptiveQuantizeFilter),
+    )
+
+
+class FilterStage(Stage):
+    """Adapter: run a legacy egress :class:`~repro_torch.core.filters.Filter`
+    as a whole-message hook.
+
+    .. deprecated:: the whole transformed payload is materialized (and
+       charged to the :class:`~repro_torch.utils.mem.MemoryMeter`) before
+       the streamer sees it. Use a registered per-item stage instead.
+    """
+
+    def __init__(self, filt: Filter) -> None:
+        self.filter = filt
+        self.name = f"filter:{type(filt).__name__}"
+        self.stateful = _filter_is_stateful(filt)
+
+    def begin_encode(self, message: Message, ctx: WireContext) -> Message:
+        with obs_trace.span(f"stage.encode.{self.name}", "stage"):
+            return self.filter.process(message)
+
+
+class IngressFilterStage(Stage):
+    """Adapter: run a legacy ingress Filter (e.g. ``DequantizeFilter``)
+    after the payload is reassembled. Same deprecation note as
+    :class:`FilterStage`."""
+
+    def __init__(self, filt: Filter) -> None:
+        self.filter = filt
+        self.name = f"filter:{type(filt).__name__}"
+        self.stateful = _filter_is_stateful(filt)
+
+    def end_decode(self, message: Message, ctx: WireContext) -> Message:
+        with obs_trace.span(f"stage.decode.{self.name}", "stage"):
+            return self.filter.process(message)
+
+
+def legacy_wire_pipelines(
+    server_filters: Mapping[FilterPoint, FilterChain],
+    client_filters: Mapping[FilterPoint, FilterChain],
+    device: Any = None,
+) -> dict[str, WirePipeline]:
+    """Map the four-point Filter configuration onto per-hop pipelines on
+    ``device``: each hop's egress chain becomes whole-message encode
+    stages, the peer's ingress chain whole-message decode stages
+    (``end_decode`` hooks run in reverse pipeline order, so the ingress
+    wrappers are appended reversed to keep chain order). The filters
+    run on their own devices. Results and wire bytes are the
+    reference's."""
+
+    def hop(egress: FilterChain, ingress: FilterChain) -> WirePipeline:
+        stages: list[Stage] = [FilterStage(f) for f in egress.filters]
+        stages += [IngressFilterStage(f) for f in reversed(ingress.filters)]
+        return WirePipeline(stages, device=device)
+
+    return {
+        "task_data": hop(
+            server_filters[FilterPoint.TASK_DATA_OUT],
+            client_filters[FilterPoint.TASK_DATA_IN],
+        ),
+        "task_result": hop(
+            client_filters[FilterPoint.TASK_RESULT_OUT],
+            server_filters[FilterPoint.TASK_RESULT_IN],
+        ),
+    }
+
+
+# ---------------------------------------------------------------------------
 # WirePipeline
 # ---------------------------------------------------------------------------
 
@@ -629,14 +875,21 @@ class WirePipeline:
     # -- encode side --------------------------------------------------------
     def begin_encode(self, message: Message) -> tuple[Message, WireContext]:
         """Run whole-message hooks; returns the message to stream and the
-        shared per-transfer context."""
+        shared per-transfer context. ``ctx.state['held_bytes']`` is the
+        payload size a legacy whole-message transform materialized (0 on
+        the per-item path) — the wire charges it to the MemoryMeter for
+        the duration of the transfer."""
         ctx = WireContext(message.headers, self.decode_values, self.device)
+        original_payload = message.payload
         # the first value stage sees raw payload items, so it may batch
         # whole-message work (async quantize dispatch) in begin_encode
         ctx.state["vstage0"] = self._vstages[0] if self._vstages else None
         for s in self.stages:
             message = s.begin_encode(message, ctx)
             ctx.headers = message.headers
+        ctx.state["held_bytes"] = (
+            message.payload_bytes() if message.payload is not original_payload else 0
+        )
         if META_ITEM in message.payload:
             raise ValueError(f"payload item name {META_ITEM!r} is reserved")
         return message, ctx
@@ -736,6 +989,18 @@ class WirePipeline:
 
     def n_items(self, message: Message) -> int:
         return len(message.payload) + 1  # + meta item
+
+    def encode_blob(self, message: Message, ctx: WireContext) -> bytes:
+        """Regular-transmission producer: the whole wire message as one
+        blob (peak ~ full payload; registered with the MemoryMeter).
+        Joins exactly once, at the end, from the per-item segments."""
+        parts: list[Any] = [_U32.pack(self.n_items(message))]
+        for _, views in self.iter_encode_views(message, ctx):
+            parts.extend(views)
+        blob = b"".join(parts)
+        mem.record_copy(len(blob))
+        mem.record_alloc(len(blob))
+        return blob
 
     def unsent_headers(self, message: Message) -> dict[str, Any]:
         """Headers that cannot cross the wire (not JSON-serializable);
@@ -931,6 +1196,17 @@ class WireDecoder:
                         self._sink.accept_item(name, value, self._sink_weight)
         else:
             self.payload[name] = value
+
+    # plugs into BlobReceiver(decode_container=...)
+    def decode_blob(self, blob: Any) -> dict[str, Any]:
+        mv = blob if isinstance(blob, memoryview) else memoryview(blob)
+        (n,) = _U32.unpack_from(mv, 0)
+        off = 4
+        for _ in range(n):
+            name, value, consumed = self.decode_item(mv[off:])
+            self.on_item(name, value)
+            off += consumed
+        return self.payload
 
     def finish(self, fallback_kind: MessageKind,
                local_headers: Optional[Mapping[str, Any]] = None) -> Message:

@@ -136,8 +136,25 @@ def dequantize(qt: QuantizedTensor, device: Any) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# state-dict level (what the wire stages transform)
+# state-dict level (what the filters and the wire stages transform)
 # ---------------------------------------------------------------------------
+
+def quantize_state_dict(sd: Mapping[str, Any], fmt: str,
+                        device: Any) -> dict[str, QuantizedTensor]:
+    """Per item, as the reference's: each tensor is one :func:`quantize`
+    call on ``device`` (one kernel launch per blocked item on the card),
+    and its payload stays there."""
+    device = torch.device(device)
+    return {name: quantize(as_tensor(arr, device), fmt) for name, arr in sd.items()}
+
+
+def dequantize_state_dict(qsd: Mapping[str, QuantizedTensor],
+                          device: Any) -> dict[str, torch.Tensor]:
+    """Per item: each QuantizedTensor is one :func:`dequantize` call onto
+    ``device``."""
+    device = torch.device(device)
+    return {name: dequantize(qt, device) for name, qt in qsd.items()}
+
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """Device tensor -> numpy, through pinned memory on CUDA (the caller

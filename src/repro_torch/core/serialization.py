@@ -48,7 +48,7 @@ import numpy as np
 from repro_torch.core.quantization import QuantizedTensor
 from repro_torch.core.sparse import SparseTensor
 from repro_torch.utils import mem
-from repro_torch.utils.trees import as_numpy
+from repro_torch.utils.trees import as_numpy, numpy_dtype
 
 _U32 = struct.Struct("<I")
 
@@ -203,7 +203,7 @@ def serialize_item_views(name: str, value: Any) -> Views:
             "name": name,
             "fmt": value.fmt,
             "payload_shape": list(value.payload.shape),
-            "payload_dtype": str(as_numpy(value.payload).dtype),
+            "payload_dtype": str(numpy_dtype(value.payload.dtype)),
             "absmax_len": views_nbytes([absmax]),
             "absmax_shape": list(value.absmax.shape) if value.absmax is not None else [],
             "orig_shape": list(value.orig_shape),

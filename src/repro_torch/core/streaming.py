@@ -1,17 +1,21 @@
 """SFM-style streaming layer (paper §I Fig. 1 and §III).
 
-Mirror of ``src/repro/core/streaming.py``, the subset the simulator's
-container path runs:
+Mirror of ``src/repro/core/streaming.py``, the subset the simulator and
+the paper's Table III run:
 
 * **Frames** — :class:`Chunk`: fixed-size (default 1 MiB) framed slices of
   a logical stream, carrying (stream_id, seq, eof) headers.
 * **Drivers** — transport plugins, looked up by name through
-  :func:`register_driver`/:func:`make_driver`; :class:`LoopbackDriver`
-  (in-process delivery) is ported. The TCP and spool drivers wait.
-* **Container streaming** — :class:`ContainerStreamer` transmits one
-  encoded dict item at a time (peak ~ largest item) and
-  :class:`ContainerReceiver` reassembles each item into one
-  preallocated buffer. Regular (whole-blob) and file streaming, the
+  :func:`register_driver`/:func:`make_driver`: :class:`LoopbackDriver`
+  (in-process delivery) and :class:`FileSpoolDriver` (frames spooled to
+  disk, replayed on ``flush()``). The TCP driver waits (ROADMAP A5).
+* **Streamers** — the three transmission modes with distinct peak-memory
+  envelopes (paper Fig. 3): :class:`ObjectStreamer` (*regular*: one
+  pre-encoded blob, peak ~ the model, received by :class:`BlobReceiver`),
+  :class:`ContainerStreamer` (one encoded dict item at a time, peak ~
+  the largest item, reassembled by :class:`ContainerReceiver` into one
+  preallocated buffer per item) and :class:`FileStreamer` (a file chunk
+  by chunk, peak ~ one chunk, written out by :class:`FileReceiver`). The
   pull-mode retriever and encode-ahead wait for a later slice.
 
 The layer is zero-copy: items arrive as ordered buffer views, chunkers
@@ -22,6 +26,7 @@ the active :class:`~repro_torch.utils.mem.MemoryMeter`.
 from __future__ import annotations
 
 import dataclasses
+import os
 import struct
 import uuid
 from collections.abc import Callable, Iterable, Iterator, Mapping
@@ -108,6 +113,10 @@ class Driver:
     def send(self, chunk: Chunk) -> None:
         raise NotImplementedError
 
+    def flush(self) -> None:
+        """Deliver anything the transport still holds (a no-op unless it
+        stores and forwards)."""
+
     def close(self) -> None:  # pragma: no cover - default no-op
         pass
 
@@ -135,7 +144,7 @@ def registered_drivers() -> tuple[str, ...]:
 
 
 #: driver names the reference registers that this package has not ported
-NOT_PORTED_DRIVERS = ("spool", "tcp")
+NOT_PORTED_DRIVERS = ("tcp",)
 
 
 def make_driver(name: str, **kwargs: Any) -> Driver:
@@ -159,6 +168,38 @@ class LoopbackDriver(Driver):
 
     def send(self, chunk: Chunk) -> None:
         self._on_chunk(chunk)
+
+
+@register_driver("spool")
+class FileSpoolDriver(Driver):
+    """Spools every frame to a directory, then replays on ``flush()``.
+
+    Models a store-and-forward relay; also exercises frame encode/decode.
+    Frame filenames carry a per-driver unique prefix, so drivers can
+    share one spool directory.
+    """
+
+    def __init__(self, spool_dir: str) -> None:
+        self.spool_dir = spool_dir
+        os.makedirs(spool_dir, exist_ok=True)
+        self._uid = uuid.uuid4().hex
+        self._count = 0
+
+    def _path(self, i: int) -> str:
+        return os.path.join(self.spool_dir, f"{self._uid}-{i:08d}.frame")
+
+    def send(self, chunk: Chunk) -> None:
+        with open(self._path(self._count), "wb") as fh:
+            fh.write(chunk.encode())
+        self._count += 1
+
+    def flush(self) -> None:
+        for i in range(self._count):
+            path = self._path(i)
+            with open(path, "rb") as fh:
+                self._on_chunk(Chunk.decode(fh.read()))
+            os.unlink(path)
+        self._count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +327,38 @@ class _ItemAssembler:
         return out, live
 
 
+class BlobReceiver:
+    """Regular transmission receiver: accumulates the whole blob.
+
+    Chunk segments are held by reference (zero-copy) and joined exactly
+    once when EOF arrives — the single materialization the regular mode
+    is defined by. ``decode_container`` turns the blob into the result
+    dict; the default is the plain serialization codec, and the wire
+    pipeline substitutes its envelope-aware decoder.
+    """
+
+    def __init__(
+        self,
+        decode_container: Optional[Callable[[bytes], dict[str, Any]]] = None,
+    ) -> None:
+        self._parts: list = []
+        self._size = 0
+        self._decode = decode_container or ser.deserialize_container
+        self.result: Optional[dict[str, Any]] = None
+
+    def on_chunk(self, chunk: Chunk) -> None:
+        self._parts.extend(chunk.segments)
+        mem.record_alloc(chunk.nbytes)
+        self._size += chunk.nbytes
+        if chunk.eof:
+            blob = b"".join(self._parts)
+            mem.record_copy(len(blob))
+            mem.record_alloc(len(blob))  # the one materialized copy
+            self.result = self._decode(blob)
+            mem.record_free(len(blob) + self._size)
+            self._parts.clear()
+
+
 class ContainerReceiver:
     """Container-streaming receiver: holds at most one item's bytes,
     reassembled into a single preallocated buffer (see
@@ -330,9 +403,37 @@ class ContainerReceiver:
             self.done = True
 
 
+class FileReceiver:
+    """File-streaming receiver: writes each chunk straight to disk."""
+
+    def __init__(self, out_path: str) -> None:
+        self.out_path = out_path
+        self._fh = open(out_path, "wb")
+        self.done = False
+
+    def on_chunk(self, chunk: Chunk) -> None:
+        with mem.record_hold(chunk.nbytes):
+            for seg in chunk.segments:
+                self._fh.write(seg)
+        if chunk.eof:
+            self._fh.close()
+            self.done = True
+
+
 # ---------------------------------------------------------------------------
 # Streamers (senders)
 # ---------------------------------------------------------------------------
+
+def _chunk_iter(blob: bytes, chunk_size: int) -> Iterator[tuple[Any, bool]]:
+    """Slice a contiguous blob into chunk payloads — memoryview slices,
+    so chunking copies nothing."""
+    mv = memoryview(blob)
+    for off in range(0, len(blob), chunk_size):
+        part = mv[off : off + chunk_size]
+        yield part, off + chunk_size >= len(blob)
+    if not blob:
+        yield b"", True
+
 
 def _chunk_iter_views(item: ser.ViewsLike, chunk_size: int) -> Iterator[tuple[Any, bool]]:
     """Chunk one scatter-gather item into payloads of exactly
@@ -362,6 +463,28 @@ def _chunk_iter_views(item: ser.ViewsLike, chunk_size: int) -> Iterator[tuple[An
                 cur_n = 0
     if cur_n:
         yield (cur[0] if len(cur) == 1 else tuple(cur)), True
+
+
+class ObjectStreamer:
+    """Regular transmission: whole container encoded, then chunked."""
+
+    def __init__(self, driver: Driver, chunk_size: int = DEFAULT_CHUNK_SIZE) -> None:
+        self.driver = driver
+        self.chunk_size = chunk_size
+
+    def send_blob(self, blob: bytes) -> bytes:
+        """Chunk out an already-encoded blob (the caller registered its
+        allocation; the streamer frees it once fully sent)."""
+        sid = uuid.uuid4().bytes
+        seq = 0
+        for part, last in _chunk_iter(blob, self.chunk_size):
+            self.driver.send(Chunk(sid, seq, part, FLAG_EOF if last else 0))
+            seq += 1
+        mem.record_free(len(blob))
+        return sid
+
+    def send_container(self, sd: Mapping[str, Any]) -> bytes:
+        return self.send_blob(ser.serialize_container(sd))  # registers full-blob alloc
 
 
 class ContainerStreamer:
@@ -397,3 +520,28 @@ class ContainerStreamer:
 
     def send_container(self, sd: Mapping[str, Any]) -> bytes:
         return self.send_items(ser.iter_serialized_items(sd), len(sd))
+
+
+class FileStreamer:
+    """Paper §III: stream a file chunk-by-chunk (peak memory = chunk)."""
+
+    def __init__(self, driver: Driver, chunk_size: int = DEFAULT_CHUNK_SIZE) -> None:
+        self.driver = driver
+        self.chunk_size = chunk_size
+
+    def send_file(self, path: str) -> bytes:
+        sid = uuid.uuid4().bytes
+        size = os.path.getsize(path)
+        seq = 0
+        sent = 0
+        with open(path, "rb") as fh:
+            while True:
+                part = fh.read(self.chunk_size)
+                sent += len(part)
+                last = sent >= size or not part
+                with mem.record_hold(len(part)):
+                    self.driver.send(Chunk(sid, seq, part, FLAG_EOF if last else 0))
+                seq += 1
+                if last:
+                    break
+        return sid

@@ -14,6 +14,17 @@ Mirror of ``src/repro/fl/job.py`` for the sequential simulator::
     result = run_job(spec)                  # on CUDA
     result = run_job(spec, device="cpu")    # plain PyTorch versions
 
+or from the command line, printing a JSON summary without the weights::
+
+    python -m repro_torch.fl.job SPEC.json [--trace OUT.json] [--device cpu]
+
+The older ``"quantization"`` / ``"dp_sigma"`` keys build the legacy
+Filter chains (the paper's two-way scheme, optionally with error
+feedback, DP noise or link-adaptive precision), adapted through the
+whole-message shim; they are mutually exclusive with ``"pipeline"``. With
+``{"fmt": "adaptive"}`` (or an ``"adaptive"`` pipeline stage) each
+client's format is reported in ``result["adaptive_fmts"]``.
+
 Entry points run on ``cuda`` unless the caller passes ``device``; with no
 CUDA device they raise. On CUDA the job turns TF32 off for matmuls and
 cuDNN, so training runs in full fp32 like the reference.
@@ -27,19 +38,30 @@ across with :func:`repro_torch.utils.trees.from_reference_state` — so both
 packages can start from the same numbers.
 
 Not ported yet (they raise): the async ``runtime`` block (ROADMAP A8),
-the legacy ``quantization`` / ``dp_sigma`` keys (A11), the live-plane
-keys (``quorum``, ``checkpoint``, ``chaos``; A9) and ``kernel_backend``
-(the port dispatches by device).
+so no simulated network binds the adaptive filters and stages; the
+live-plane keys (``quorum``, ``checkpoint``, ``chaos``; A9) and
+``kernel_backend`` (the port dispatches by device).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Optional
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.pipeline import build_pipeline
+from repro_torch.core.filters import (
+    AdaptiveQuantizeFilter,
+    DequantizeFilter,
+    DPGaussianNoiseFilter,
+    ErrorFeedbackQuantizeFilter,
+    FilterChain,
+    FilterPoint,
+    QuantizeFilter,
+    no_filters,
+)
+from repro_torch.core.pipeline import AdaptiveQuantizeStage, build_pipeline
 from repro_torch.data import dirichlet_partition, iid_partition
 from repro_torch.fl.aggregator import aggregator_consumes_wire, build_aggregator
 from repro_torch.fl.executor import TrainExecutor
@@ -90,8 +112,6 @@ DEFAULTS: dict[str, Any] = {
 #: spec keys whose features wait for a later slice, with the queue item
 _NOT_PORTED_KEYS = {
     "runtime": "the async runtime (ROADMAP A8)",
-    "quantization": "the legacy Filter chains (ROADMAP A11); use \"pipeline\"",
-    "dp_sigma": "the legacy Filter chains (ROADMAP A11)",
     "quorum": "the live federation plane (ROADMAP A9)",
     "checkpoint": "the live federation plane (ROADMAP A9)",
     "chaos": "the live federation plane (ROADMAP A9)",
@@ -124,17 +144,37 @@ def aggregator_spec(spec: dict[str, Any]) -> Any:
     if agg is None:
         agg = (
             "quantized-fedavg"
-            if spec.get("server_quantized_aggregation") and spec.get("pipeline")
+            if spec.get("server_quantized_aggregation")
+            and (spec.get("quantization") or spec.get("pipeline"))
             else "fedavg"
         )
     return agg
 
 
-def build_pipelines_from_spec(spec: dict[str, Any], device: Any = None) -> dict[str, Any]:
-    """Wire pipelines for a job spec, bound to ``device``. Aggregators
-    that fold wire-form payloads get an uplink left undecoded."""
-    spec = normalize_spec(spec)
-    p = spec.get("pipeline") or {}
+def _adaptive_filter(q: dict[str, Any], device: Any) -> AdaptiveQuantizeFilter:
+    # the reference binds the runtime's network here; without the runtime
+    # (ROADMAP A8) the fleet-wide bandwidth decides
+    return AdaptiveQuantizeFilter(
+        bandwidth_bps=float(q.get("bandwidth_mbps", 80.0)) * 1e6,  # wifi-class fallback
+        budget_s=float(q.get("budget_s", 1.0)),
+        min_params=int(q.get("min_params", 0)),
+        device=device,
+    )
+
+
+def _build_pipelines(spec: dict[str, Any],
+                     device: Any) -> tuple[dict[str, Any], list[AdaptiveQuantizeStage]]:
+    """The ``"pipeline"`` spec block as simulator pipelines on ``device``,
+    and the adaptive stages found (reported in ``result["adaptive_fmts"]``).
+    Aggregators that fold wire-form payloads get an uplink left
+    undecoded."""
+    p = spec["pipeline"] or {}
+    if spec.get("quantization") or spec.get("dp_sigma"):
+        raise ValueError(
+            '"pipeline" replaces the legacy "quantization"/"dp_sigma" keys; '
+            'declare those transforms as stages (e.g. "quantize:nf4", '
+            '{"stage": "dp-noise", "sigma": 0.01})'
+        )
     unknown = set(p) - set(_PIPELINE_DIRECTIONS)
     if unknown:
         raise ValueError(
@@ -146,11 +186,92 @@ def build_pipelines_from_spec(spec: dict[str, Any], device: Any = None) -> dict[
         specs[_PIPELINE_DIRECTIONS[key]] += list(stages or [])
     keep_wire = bool(spec.get("server_quantized_aggregation")) or \
         aggregator_consumes_wire(aggregator_spec(spec))
-    return {
+    pipelines = {
         "task_data": build_pipeline(specs["task_data"], device=device),
         "task_result": build_pipeline(specs["task_result"], decode_values=not keep_wire,
                                       device=device),
     }
+    adaptive: list[AdaptiveQuantizeStage] = []
+    for pl in pipelines.values():
+        for stage in pl.stages:
+            if isinstance(stage, AdaptiveQuantizeStage):
+                if keep_wire:
+                    raise ValueError(
+                        "server_quantized_aggregation does not compose with the "
+                        "adaptive stage: clients may ship mixed formats"
+                    )
+                adaptive.append(stage)
+    return pipelines, adaptive
+
+
+def build_pipelines_from_spec(spec: dict[str, Any], device: Any = None) -> dict[str, Any]:
+    """Wire pipelines for a job spec, bound to ``device``. Specs without
+    a ``"pipeline"`` block get identity pipelines; the legacy
+    ``"quantization"`` / ``"dp_sigma"`` keys build whole-message Filter
+    chains with no pipeline form and are rejected here."""
+    spec = normalize_spec(spec)
+    if spec.get("pipeline"):
+        return _build_pipelines(spec, device)[0]
+    if spec.get("quantization") or spec.get("dp_sigma"):
+        raise ValueError(
+            'the legacy "quantization"/"dp_sigma" keys build whole-message '
+            'Filter chains with no streaming-pipeline form; declare them as '
+            '"pipeline" stages (e.g. "quantize:nf4", '
+            '{"stage": "dp-noise", "sigma": 0.01})'
+        )
+    keep_wire = bool(spec.get("server_quantized_aggregation")) or \
+        aggregator_consumes_wire(aggregator_spec(spec))
+    return {
+        "task_data": build_pipeline([], device=device),
+        "task_result": build_pipeline([], decode_values=not keep_wire, device=device),
+    }
+
+
+def _build_filters(spec: dict[str, Any], device: Any):
+    """Two-way scheme (+optional EF / DP / link-adaptive) from the job
+    spec, as the reference builds it: one filter instance per point,
+    shared by every client — one DP generator drawn in client order, one
+    error-feedback residual per tensor name across the clients of a hop."""
+    server = no_filters()
+    client = no_filters()
+    adaptive: list[AdaptiveQuantizeFilter] = []
+    q = spec.get("quantization")
+    if q:
+        fmt = q["fmt"]
+        if fmt == "adaptive":
+            if q.get("error_feedback"):
+                raise ValueError("error_feedback does not compose with adaptive precision")
+            if spec.get("server_quantized_aggregation"):
+                # per-client formats can differ (that's the point), and the
+                # fused aggregator needs one uniform wire format
+                raise ValueError(
+                    "server_quantized_aggregation does not compose with adaptive "
+                    "precision: clients may ship mixed formats"
+                )
+
+            def mk():
+                adaptive.append(_adaptive_filter(q, device))
+                return adaptive[-1]
+        elif q.get("error_feedback"):
+            def mk():
+                return ErrorFeedbackQuantizeFilter(fmt, device=device)
+        else:
+            def mk():
+                return QuantizeFilter(fmt, device=device)
+        server[FilterPoint.TASK_DATA_OUT] = FilterChain([mk()])
+        client[FilterPoint.TASK_DATA_IN] = FilterChain([DequantizeFilter(device)])
+        out_chain: list[Any] = []
+        if spec.get("dp_sigma"):
+            out_chain.append(DPGaussianNoiseFilter(spec["dp_sigma"], seed=spec["seed"]))
+        out_chain.append(mk())
+        client[FilterPoint.TASK_RESULT_OUT] = FilterChain(out_chain)
+        if not spec.get("server_quantized_aggregation"):
+            server[FilterPoint.TASK_RESULT_IN] = FilterChain([DequantizeFilter(device)])
+    elif spec.get("dp_sigma"):
+        client[FilterPoint.TASK_RESULT_OUT] = FilterChain(
+            [DPGaussianNoiseFilter(spec["dp_sigma"], seed=spec["seed"])]
+        )
+    return server, client, adaptive
 
 
 def _client_datasets(spec: dict[str, Any], cfg: Any) -> list[Any]:
@@ -243,6 +364,9 @@ class Job:
     sim: FLSimulator
     init_weights: dict[str, Any]
     history: list[float]
+    # legacy AdaptiveQuantizeFilter instances or adaptive pipeline stages —
+    # anything exposing last_fmt_by_client
+    adaptive_filters: list[Any]
 
     def run(self) -> dict[str, Any]:
         final = self.sim.run(self.init_weights)
@@ -256,6 +380,11 @@ class Job:
         }
         if self.sim.tracer is not None and isinstance(self.spec.get("trace"), str):
             out["trace"] = self.sim.tracer.write(self.spec["trace"])
+        if self.adaptive_filters:
+            fmts: dict[str, str] = {}
+            for f in self.adaptive_filters:
+                fmts.update(f.last_fmt_by_client)
+            out["adaptive_fmts"] = fmts
         return out
 
 
@@ -293,6 +422,12 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
     tracer = None
     if spec.get("trace"):
         tracer = Tracer(sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    if spec.get("pipeline"):
+        pipelines, adaptive = _build_pipelines(spec, device)
+        wire_kwargs: dict[str, Any] = {"pipelines": pipelines}
+    else:
+        server_filters, client_filters, adaptive = _build_filters(spec, device)
+        wire_kwargs = {"server_filters": server_filters, "client_filters": client_filters}
     sim = FLSimulator(
         executors,
         build_aggregator(aggregator_spec(spec), device=device),
@@ -302,15 +437,47 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
             chunk_size=int(spec["chunk_mb"] * (1 << 20)),
             driver=spec["driver"],
         ),
-        pipelines=build_pipelines_from_spec(spec, device),
         server_streaming_agg=bool(spec.get("server_streaming_agg")),
         trace=tracer,
         device=device,
+        **wire_kwargs,
     )
-    return Job(spec, sim, init, history)
+    return Job(spec, sim, init, history, adaptive)
 
 
 def run_job(spec: dict[str, Any], *, device: Any = None,
             weights: Optional[dict[str, Any]] = None) -> dict[str, Any]:
     return build_job(spec, device=device, weights=weights).run()
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    """``python -m repro_torch.fl.job SPEC.json [--trace OUT] [--device cpu]``
+    — run a declarative job on the card (or on ``--device``) and print a
+    JSON summary (weights omitted). ``--trace`` turns on the span tracer
+    and writes the run's Chrome trace-event file."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.fl.job",
+        description="Run a declarative FL job spec.",
+    )
+    ap.add_argument("spec", help="path to a JSON job spec")
+    ap.add_argument("--trace", metavar="OUT_JSON", default=None,
+                    help="record a span trace and write Chrome trace-event "
+                         "JSON here (open in Perfetto)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must be present)")
+    args = ap.parse_args(argv)
+    with open(args.spec) as fh:
+        spec = json.load(fh)
+    if args.trace:
+        spec["trace"] = args.trace
+    result = run_job(spec, device=args.device)
+    result.pop("final_weights", None)
+    print(json.dumps(result, indent=1, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
 

@@ -10,9 +10,15 @@ stacks, one per hop direction (``task_data`` server->client,
 loop. :class:`TrafficStats` counts every byte that crosses a driver —
 frame headers, envelopes and the transmitted header item included.
 
-Waiting for later slices (ROADMAP A5/A8/A11): the async runtime
-(``runtime=``/``policy=``/``network=``), chunk fault injection, the
-legacy Filter configuration, and regular (whole-blob) transmission.
+Transmission is ``container`` (one item at a time; ``file`` payloads ride
+it too, as in the reference) or ``regular`` (the whole message as one
+blob), over any registered driver (``loopback``, ``spool``). The legacy
+four-point ``Filter``/``FilterChain`` configuration
+(``server_filters=``/``client_filters=``) is adapted onto whole-message
+pipeline stages via :func:`~repro_torch.core.pipeline.legacy_wire_pipelines`.
+
+Waiting for later slices (ROADMAP A5/A8): the async runtime
+(``runtime=``/``policy=``/``network=``) and chunk fault injection.
 """
 from __future__ import annotations
 
@@ -23,29 +29,32 @@ from collections.abc import Callable, Sequence
 from typing import Any, Optional, Union
 
 from repro_torch.core import streaming as sm
+from repro_torch.core.filters import FilterChain, FilterPoint, no_filters
 from repro_torch.core.messages import Message
-from repro_torch.core.pipeline import WirePipeline
+from repro_torch.core.pipeline import (
+    IngressFilterStage,
+    WirePipeline,
+    legacy_wire_pipelines,
+)
 from repro_torch.fl.controller import ClientProxy, ScatterAndGather
 from repro_torch.fl.executor import Executor
 from repro_torch.obs import MetricsRegistry, Tracer
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.utils import mem
 from repro_torch.utils.mem import MemoryMeter
+
 
 @dataclasses.dataclass
 class SimulationConfig:
     num_rounds: int = 1
-    transmission: str = "container"     # container | file (both stream items)
+    transmission: str = "container"     # regular | container | file
     chunk_size: int = sm.DEFAULT_CHUNK_SIZE
     driver: str = "loopback"            # any registered driver name
+    spool_dir: Optional[str] = None     # the spool driver's directory
 
     def __post_init__(self) -> None:
-        if self.transmission == "regular":
-            raise NotImplementedError(
-                "regular (whole-blob) transmission is not ported to repro_torch "
-                "yet (ROADMAP A5); use container"
-            )
-        if self.transmission not in ("container", "file"):
+        if self.transmission not in ("regular", "container", "file"):
             raise ValueError(f"unknown transmission {self.transmission!r}")
 
 
@@ -95,6 +104,9 @@ class CountingDriver(sm.Driver):
         self.bytes_sent += sm._HDR.size + chunk.nbytes
         self.inner.send(chunk)
 
+    def flush(self) -> None:
+        self.inner.flush()
+
     def close(self) -> None:
         self.inner.close()
 
@@ -107,6 +119,14 @@ class _Wire:
     def __init__(self, cfg: SimulationConfig, stats: TrafficStats) -> None:
         self.cfg = cfg
         self.stats = stats
+
+    def _driver(self) -> sm.Driver:
+        kwargs: dict[str, Any] = {}
+        if self.cfg.driver == "spool":
+            if self.cfg.spool_dir is None:
+                raise ValueError('the "spool" driver needs SimulationConfig.spool_dir')
+            kwargs["spool_dir"] = self.cfg.spool_dir
+        return sm.make_driver(self.cfg.driver, **kwargs)
 
     def transmit(self, message: Message, pipeline: WirePipeline,
                  sink: Optional[Any] = None) -> tuple[Message, int]:
@@ -128,17 +148,35 @@ class _Wire:
         ``sink`` switches the receiving end to streaming aggregation: each
         decoded item is folded via ``sink.begin``/``sink.accept_item``
         inside the receive loop, and the returned Message carries headers
-        only."""
-        driver = CountingDriver(sm.make_driver(self.cfg.driver))
+        only. A legacy whole-message transform's payload is charged to the
+        MemoryMeter for the duration of the transfer."""
+        driver = CountingDriver(self._driver())
+        regular = self.cfg.transmission == "regular"
         decoder = pipeline.decoder(sink=sink)
-        recv = sm.ContainerReceiver(consume=decoder.on_item,
-                                    decode_item=decoder.decode_item)
+        if regular:
+            recv: Any = sm.BlobReceiver(decode_container=decoder.decode_blob)
+        else:
+            # container streaming is also the carrier for "file" payloads,
+            # as in the reference; FileStreamer moves real files
+            recv = sm.ContainerReceiver(consume=decoder.on_item,
+                                        decode_item=decoder.decode_item)
         msg, ctx = pipeline.begin_encode(message)
-        driver.connect(recv.on_chunk)
-        sm.ContainerStreamer(driver, self.cfg.chunk_size).send_items(
-            pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg)
-        )
-        driver.close()
+        held = int(ctx.state.get("held_bytes", 0))
+        if held:
+            mem.record_alloc(held)
+        try:
+            driver.connect(recv.on_chunk)
+            if regular:
+                sm.ObjectStreamer(driver, self.cfg.chunk_size).send_blob(
+                    pipeline.encode_blob(msg, ctx))
+            else:
+                sm.ContainerStreamer(driver, self.cfg.chunk_size).send_items(
+                    pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg))
+            driver.flush()  # no-op unless a spool driver is underneath
+            driver.close()
+        finally:
+            if held:
+                mem.record_free(held)
         out = decoder.finish(msg.kind, pipeline.unsent_headers(msg))
         self.stats.add(driver.bytes_sent, message.payload_bytes())
         return out, driver.bytes_sent
@@ -175,6 +213,8 @@ class FLSimulator:
         executors: Sequence[Executor],
         aggregator: Any,
         config: Optional[SimulationConfig] = None,
+        server_filters: Optional[dict[FilterPoint, FilterChain]] = None,
+        client_filters: Optional[dict[FilterPoint, FilterChain]] = None,
         pipelines: Optional[dict[str, WirePipeline]] = None,
         server_streaming_agg: bool = False,
         trace: Union[Tracer, bool, None] = None,
@@ -182,18 +222,39 @@ class FLSimulator:
     ) -> None:
         """``pipelines`` maps hop direction -> :class:`WirePipeline`
         (missing directions get the identity pipeline on ``device``).
+        ``server_filters``/``client_filters`` are the legacy four-point
+        Filter configuration, adapted onto whole-message pipeline stages
+        (the full transformed payload is materialized before streaming);
+        mutually exclusive with ``pipelines``.
         ``server_streaming_agg=True`` folds Task Result items into the
         aggregator one at a time as they decode (bitwise-equal to batch
         aggregation: same order, same arithmetic)."""
         self.config = config or SimulationConfig()
-        pipelines = dict(pipelines or {})
-        unknown = set(pipelines) - {"task_data", "task_result"}
-        if unknown:
-            raise ValueError(f"unknown pipeline directions {sorted(unknown)}")
-        self.pipelines = {
-            hop: pipelines.get(hop) or WirePipeline([], device=device)
-            for hop in ("task_data", "task_result")
-        }
+        if pipelines is not None and (server_filters is not None or client_filters is not None):
+            raise ValueError("pass either pipelines= or the legacy *_filters=, not both")
+        if pipelines is not None:
+            unknown = set(pipelines) - {"task_data", "task_result"}
+            if unknown:
+                raise ValueError(f"unknown pipeline directions {sorted(unknown)}")
+            self.pipelines = {
+                hop: pipelines.get(hop) or WirePipeline([], device=device)
+                for hop in ("task_data", "task_result")
+            }
+        else:
+            self.pipelines = legacy_wire_pipelines(
+                server_filters or no_filters(), client_filters or no_filters(), device
+            )
+        if server_streaming_agg and any(
+                isinstance(s, IngressFilterStage)
+                for s in self.pipelines["task_result"].stages):
+            raise ValueError(
+                "streaming aggregation folds items as they decode, but a "
+                "legacy server-ingress filter (TASK_RESULT_IN, e.g. "
+                "DequantizeFilter) transforms the payload only after full "
+                "reassembly; declare the uplink as per-item pipeline "
+                'stages instead (e.g. "quantize:nf4" — decode is '
+                "automatic from the envelope)"
+            )
         self.stats = TrafficStats()
         self.meter = MemoryMeter()
         self.server_streaming_agg = server_streaming_agg

@@ -60,7 +60,9 @@ def as_tensor(value: Any, device: Any) -> torch.Tensor:
     buffers, which callers must then not write into."""
     if isinstance(value, torch.Tensor):
         return value.to(device)
-    arr = np.ascontiguousarray(np.asarray(value))
+    arr = np.asarray(value)
+    if not arr.flags.c_contiguous:   # (ascontiguousarray would make a 0-d array 1-d)
+        arr = np.ascontiguousarray(arr)
     if arr.flags.writeable:
         t = torch.from_numpy(arr)
     else:

@@ -13,7 +13,11 @@ tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
 raise; so is the sLSTM scan (``SLSTM_TOL``, h and the final state), at
 head dims that take each cluster layout too, whose backward must raise.
 Two gloo ranks on the card run the int8 collective against the
-same collective on the CPU, bitwise. Imports torch and the port only, so
+same collective on the CPU, bitwise. The quantize and dequantize filters
+launch one kernel per item, and ``examples/jobs/legacy_quantized.json``
+at smoke width with fixed updates gives the CPU's weights and wire bytes
+on the card, in container and regular transmission. Imports torch and
+the port only, so
 it runs on the card machine,
 which has no JAX:
 
@@ -286,3 +290,84 @@ def test_two_gloo_ranks_on_one_card_match_the_cpu(cuda):
         assert out["card"].tobytes() == out["cpu"].tobytes()
         assert out["bucket"].tobytes() == out["card"].tobytes()
     assert ranks[0]["card"].tobytes() == ranks[1]["card"].tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,kernels", [
+    ("blockwise8", ("quantize_blockwise8", "dequantize_blockwise8")),
+    ("nf4", ("quantize_4bit", "dequantize_4bit")),
+])
+def test_filters_launch_one_kernel_per_item_on_the_card(cuda, fmt, kernels):
+    """QuantizeFilter / DequantizeFilter work item by item, as the
+    reference's do: one quantize launch per float item, one dequantize
+    launch per quantized item, and the card's bytes are the CPU's."""
+    from repro_torch.core.filters import DequantizeFilter, QuantizeFilter
+    from repro_torch.core.messages import Message, MessageKind
+    from repro_torch.core.serialization import serialize_item
+
+    gen = torch.Generator().manual_seed(3)
+    payload = {"a": torch.randn(4096 * 3 + 5, generator=gen),
+               "b": torch.randn(64, 70, generator=gen),
+               "c": torch.randn(7, generator=gen),
+               "steps": torch.arange(4)}
+    ops.reset_launch_counts()
+    card = QuantizeFilter(fmt, device=cuda).process(
+        Message(MessageKind.TASK_DATA, {k: v.to(cuda) for k, v in payload.items()}))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert launches[kernels[0]] == 3 and sum(launches.values()) == 3
+    cpu = QuantizeFilter(fmt, device="cpu").process(Message(MessageKind.TASK_DATA, payload))
+    for name in payload:
+        assert serialize_item(name, card.payload[name]) == serialize_item(name, cpu.payload[name])
+    ops.reset_launch_counts()
+    back = DequantizeFilter(cuda).process(card)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert launches[kernels[1]] == 3 and sum(launches.values()) == 3
+    want = DequantizeFilter("cpu").process(cpu)
+    for name in ("a", "b", "c"):
+        assert _same(back.payload[name].cpu(), want.payload[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transmission", ["container", "regular"])
+def test_legacy_round_on_the_card_matches_the_cpu(cuda, transmission):
+    """``examples/jobs/legacy_quantized.json`` at smoke width with fixed
+    client updates: the card and the CPU give the same final weights and
+    the same wire bytes, and the card launches one B1 per item at each
+    egress point and one B2 per item at each ingress point."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.fl.job import build_job, initial_weights
+
+    spec = json.loads((Path(__file__).resolve().parents[1] / "examples" / "jobs"
+                       / "legacy_quantized.json").read_text())
+    spec["transmission"] = transmission
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+
+    def fixed(index):
+        def train_fn(_params, rnd):
+            rng = np.random.default_rng((index, rnd))
+            return ({k: v + rng.standard_normal(v.shape).astype(np.float32)
+                     * np.float32(0.05 * (index + 1)) for k, v in init.items()},
+                    3 + 5 * index, {})
+        return train_fn
+
+    outs = {}
+    for dev in ("cpu", cuda):
+        jb = build_job(spec, device=dev, weights=init)
+        for i, proxy in enumerate(jb.sim.proxies):
+            proxy.executor.train_fn = fixed(i)
+        ops.reset_launch_counts()
+        out = jb.run()
+        outs[str(dev)] = (out, ops.launch_counts())
+    (want, cpu_launches), (got, launches) = outs["cpu"], outs[str(cuda)]
+    per_direction = spec["rounds"] * spec["clients"] * len(init)
+    assert cpu_launches == {name: 0 for name in ops.KERNELS}
+    assert launches == {**cpu_launches, "quantize_blockwise8": 2 * per_direction,
+                        "dequantize_blockwise8": 2 * per_direction}
+    assert got["wire_bytes"] == want["wire_bytes"]
+    assert got["telemetry"]["memory"] == want["telemetry"]["memory"]
+    for name, w in want["final_weights"].items():
+        assert torch.equal(_bits(got["final_weights"][name].cpu()), _bits(w)), name

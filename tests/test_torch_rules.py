@@ -65,14 +65,22 @@ def test_entry_point_imports_with_jax_and_reference_blocked():
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, sys.argv[1])
         sys.path.insert(0, sys.argv[2])
+        import runpy
         import repro_torch.fl.job
+        import repro_torch.core.filters
         import repro_torch.core.pipeline
+        import repro_torch.core.streaming
         import repro_torch.kernels.ops
         import repro_torch.launch.serve
         import repro_torch.launch.fl_train
         import repro_torch.core.collectives
         import repro_torch.models.ssm
         import chip_smoke
+        sys.argv = ["repro_torch.fl.job", "--help"]
+        try:   # the command-line entry point, as python -m runs it
+            runpy.run_module("repro_torch.fl.job", run_name="__main__")
+        except SystemExit as exc:
+            assert exc.code == 0, exc.code
         leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not leaked, leaked
         print("ok")
