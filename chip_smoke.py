@@ -36,6 +36,18 @@ from the same weights, counters zeroed before each (one B1 launch per item
 per egress, one B2 per item per ingress), bitwise-equal final weights and
 a larger MemoryMeter peak for regular; the spec at smoke width on the card
 against the CPU, and ``python -m repro_torch.fl.job`` on the spec file.
+Then the async runtime (``repro_torch.runtime``) at full width:
+``examples/jobs/streaming_aggregation.json`` with qwen1.5-0.5b at its
+published widths (FedBuff, 3 clients, 6 tasks, buffer 2, 3 in flight, a
+hetero fiber/lte network, nf4 downlink with per-layer rules, blockwise8 +
+crc32 uplink folded at each completion instant; ``zlib`` dropped), the
+counters zeroed before and checked after against the launches the path
+implies (B1 twice a dispatch, B4 a downlink, B5 a downlinked nf4 item,
+B2 an uplinked item, no B3), with 6 completions and 3 model updates;
+both async example specs as they stand at smoke width on the card
+against the CPU (fixed updates identical, trained within the stated
+bound); secure aggregation's masked grids and mean card vs CPU; and
+``python -m repro_torch.fl.job`` on ``streaming_aggregation.json``.
 Then the paper's Table II on the card (the full-width state through
 ``QuantizeFilter`` in fp16, blockwise8, nf4 and fp4, serialized bytes
 against the byte model and the paper) and Table III on its host (the
@@ -125,6 +137,21 @@ WIRE_PIPELINE_JOB = os.path.join(REPO, "examples", "jobs", "wire_pipeline.json")
 #: the third path: the paper's two-way filter scheme, run at full width with
 #: 1 round of its 2 (time), in container and in regular transmission
 LEGACY_JOB = os.path.join(REPO, "examples", "jobs", "legacy_quantized.json")
+#: the fourth path: the async runtime (FedBuff, server-side streaming
+#: aggregation) at full-width qwen1.5-0.5b, and both async example specs
+#: at smoke width card vs CPU
+ASYNC_JOB = os.path.join(REPO, "examples", "jobs", "streaming_aggregation.json")
+ASYNC_HETERO_JOB = os.path.join(REPO, "examples", "jobs", "async_hetero_pipeline.json")
+#: C1's bound on the async paths' trained weights (:func:`c1_counts`): the
+#: share of elements that may exceed one blockwise8 step by a 4-bit code
+#: gap (a code that flipped on a hop), and the share that may exceed that
+#: by AdamW's sign-flip term
+NF4_FLIP_SHARE = 1e-4
+SIGN_FLIP_SHARE = 1e-5
+#: secure aggregation card vs CPU: full-width qwen1.5-0.5b's stacked MLP
+#: gate (69,206,016 values); with the embedding item as well, the host's
+#: numpy mask draws made this check take about a minute
+SECURE_AGG_SHAPES = {"blocks.mlp.w_gate": (24, 1024, 2816)}
 N_ITEMS = 12                       # flat state-dict items of llama3.2-1b
 LLAMA_PARAMS = 1_498_482_688       # parameters of full-width llama3.2-1b
 #: Table II: the formats quantized on the card, and the paper's size of each
@@ -785,6 +812,38 @@ def block_step(torch, want, got, block: int, step: float):
     return am.reshape(-1, block).amax(1).repeat_interleave(block)[:flat_w.numel()] * step
 
 
+def c1_counts(torch, want: dict, got: dict, sign_flips: float) -> dict:
+    """Trained weights ``got`` against ``want`` under C1's bound for the
+    async paths. Each element must lie within one blockwise8 step of its
+    block + 1e-5 relative (the step bound); at most a
+    :data:`NF4_FLIP_SHARE` of them (a 4-bit code that flipped on a hop)
+    one nf4 code gap of its 64-block more (the gap bound); at most a
+    :data:`SIGN_FLIP_SHARE` AdamW's ``sign_flips`` more, and none beyond
+    that. Returns the element count, the counts beyond the step and the
+    gap bounds, whether all of it holds, and the worst ratio to each."""
+    from repro_torch.kernels.ref import BLOCK4, BLOCK8, NF4_CODE
+
+    gap = float(np.diff(np.sort(NF4_CODE)).max())
+    n = beyond_step = beyond_gap = 0
+    within_all = True
+    worst_step = worst_gap = 0.0
+    for name, w in want.items():
+        g = got[name]
+        step = block_step(torch, w, g, BLOCK8, 1 / 127) + 1e-5 * w.abs().reshape(-1)
+        gap_bound = step + block_step(torch, w, g, BLOCK4, gap)
+        err = (g - w).abs().reshape(-1)
+        n += err.numel()
+        beyond_step += int((err > step).sum())
+        beyond_gap += int((err > gap_bound).sum())
+        within_all &= bool((err <= gap_bound + sign_flips).all())
+        worst_step = max(worst_step, float((err / step).nan_to_num(posinf=math.inf).max()))
+        worst_gap = max(worst_gap, float((err / gap_bound).nan_to_num(posinf=math.inf).max()))
+    holds = (within_all and beyond_step <= NF4_FLIP_SHARE * n
+             and beyond_gap <= SIGN_FLIP_SHARE * n)
+    return {"elements": n, "beyond_step": beyond_step, "beyond_gap": beyond_gap,
+            "holds": holds, "worst_of_step": worst_step, "worst_of_gap": worst_gap}
+
+
 def check_against_cpu(torch, dev) -> dict:
     """Smoke width, card vs CPU from identical weights, blockwise8 path:
     fixed updates must give the same bits; a trained round must agree
@@ -1094,6 +1153,378 @@ def check_legacy_against_cpu(torch, dev) -> dict:
           f"{summary['wire_bytes']} wire bytes, losses {summary['history']}")
     return {"fixed_wire_bytes": wire, "trained_max_steps": worst, "loss_rel": rel,
             "cli": {k: summary[k] for k in ("messages", "wire_bytes", "history")}}
+
+
+def async_spec(path: str = ASYNC_JOB) -> dict:
+    """``examples/jobs/streaming_aggregation.json`` at full width, ``zlib``
+    dropped from both hops (single-core deflate of ~0.9 GB a downlink and
+    ~0.6 GB an uplink, the uplink encoded twice, is host time)."""
+    with open(path) as fh:
+        spec = json.load(fh)
+    pipeline = {hop: [s for s in stages if s != "zlib"]
+                for hop, stages in spec["pipeline"].items()}
+    return {**spec, "smoke": False, "pipeline": pipeline}
+
+
+def async_formats(spec: dict, hop: str, names: list[str]) -> dict[str, str | None]:
+    """Each item's format on one hop (``task_data`` or ``task_result``),
+    read from the spec's own ``"quantize:..."`` string, not from the
+    stage that runs it: ``pattern=fmt`` entries are rules, the first
+    pattern found in the item's name decides and ``keep`` keeps the item;
+    the entry without ``=`` is the default. Every item of these models is
+    a float tensor and the stage quantizes any size, so no item is
+    skipped for its dtype or size. A hop without such a stage: None."""
+    fmts: dict[str, str | None] = dict.fromkeys(names)
+    for stage in spec["pipeline"].get(f"{hop}_out", []):
+        if not (isinstance(stage, str) and stage.startswith("quantize:")):
+            continue
+        rules, default = [], None
+        for entry in stage.split(":", 1)[1].split(","):
+            pattern, is_rule, fmt = entry.partition("=")
+            if is_rule:
+                rules.append((pattern, None if fmt in ("", "keep") else fmt))
+            else:
+                default = pattern
+        fmts = {name: next((f for p, f in rules if p in name), default) for name in names}
+    return fmts
+
+
+def async_launches(spec: dict, names: list[str]) -> dict[str, int]:
+    """The launches the async streaming path implies, from the spec's
+    formats (:func:`async_formats`): the uplink is encoded twice a
+    dispatch (the byte-pricing pass and the fold transfer), one fused B1
+    group each; one fused B4 group a downlink; one B5 a downlinked nf4
+    item on the client; one B2 an uplinked blockwise8 item in the fold;
+    no B3 (FedBuff folds dense values)."""
+    tasks = spec["runtime"]["total_tasks"]
+    down = list(async_formats(spec, "task_data", names).values())
+    up = list(async_formats(spec, "task_result", names).values())
+    return {"quantize_blockwise8": 2 * tasks * ("blockwise8" in up),
+            "quantize_4bit": tasks * ("nf4" in down),
+            "dequantize_4bit": tasks * down.count("nf4"),
+            "dequantize_blockwise8": tasks * up.count("blockwise8")}
+
+
+def check_async_kernels(torch, dev, spec: dict) -> dict:
+    """B1, B2, B4 and B5 against their plain versions on the card, bitwise,
+    at the shapes the full-width async path gives them, from the spec's
+    own initial weights: quantize over the uplink's fused blockwise8 group
+    and over the downlink's fused nf4 group (the items the spec's rules
+    leave to nf4), laid out as ``quantize_batch`` lays them out, the 4-bit
+    one compared in chunks of blocks as in :func:`check_fourbit_kernels`;
+    dequantize at each group's largest item, its rows copied out of the
+    kernel's own output (blocks never span items)."""
+    from repro_torch.core.quantization import pack_group
+    from repro_torch.fl.job import initial_weights
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_blockwise8 import (
+        dequantize_blockwise8,
+        quantize_blockwise8,
+    )
+    from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit
+
+    weights = initial_weights(spec, device=dev)
+    names = list(weights)
+    up = async_formats(spec, "task_result", names)
+    down = async_formats(spec, "task_data", names)
+    report = {}
+
+    group = [n for n in names if up[n] == "blockwise8"]
+    x2d, spans = pack_group(weights, group, dev, ref.BLOCK8)
+    q, am = quantize_blockwise8(x2d)
+    q_p, am_p = ref.quantize_blockwise8(x2d)
+    if not (torch.equal(q, q_p) and same_bits(torch, am, am_p)):
+        fail("async: blockwise8 quantize kernel disagrees with its plain version on the "
+             "uplink's fused group")
+    del q_p, am_p
+    name, shape, _dtype, start, nb = max(spans, key=lambda s: s[4])
+    # the item's own buffers, as the wire delivers them (a row slice of
+    # absmax need not be 16-byte aligned)
+    q_i, am_i = q[start:start + nb].clone(), am[start:start + nb].clone()
+    if not same_bits(torch, dequantize_blockwise8(q_i, am_i),
+                     ref.dequantize_blockwise8(q_i, am_i)):
+        fail(f"async: blockwise8 dequantize kernel disagrees with its plain version at {name}")
+    report["uplink"] = {"items": len(group), "blocks": x2d.shape[0],
+                        "largest_item": name, "largest_shape": shape}
+    del x2d, q, am, q_i, am_i
+    release(torch)
+
+    group = [n for n in names if down[n] == "nf4"]
+    x2d, spans = pack_group(weights, group, dev, ref.BLOCK4)
+    del weights
+    p, am = quantize_4bit(x2d, "nf4")
+    for lo in range(0, x2d.shape[0], CHUNK_BLOCKS4):
+        hi = min(lo + CHUNK_BLOCKS4, x2d.shape[0])
+        p_p, am_p = ref.quantize_4bit(x2d[lo:hi], "nf4")
+        if not (torch.equal(p[lo:hi], p_p) and same_bits(torch, am[lo:hi], am_p)):
+            fail(f"async: nf4 quantize kernel disagrees with its plain version on blocks "
+                 f"{lo}:{hi} of the downlink's fused group")
+        del p_p, am_p
+    name, shape, _dtype, start, nb = max(spans, key=lambda s: s[4])
+    p_i, am_i = p[start:start + nb].clone(), am[start:start + nb].clone()
+    if not same_bits(torch, dequantize_4bit(p_i, am_i, "nf4"),
+                     ref.dequantize_4bit(p_i, am_i, "nf4")):
+        fail(f"async: nf4 dequantize kernel disagrees with its plain version at {name}")
+    report["downlink"] = {"items": len(group), "blocks": x2d.shape[0],
+                          "largest_item": name, "largest_shape": shape}
+    del x2d, p, am, p_i, am_i
+    release(torch)
+    print(f"async kernels agree bitwise with their plain versions at the full-width path's "
+          f"shapes: blockwise8 quantize on the uplink group ({report['uplink']['items']} items, "
+          f"{report['uplink']['blocks']} blocks), dequantize at "
+          f"{report['uplink']['largest_item']} {report['uplink']['largest_shape']}; nf4 "
+          f"quantize on the downlink group ({report['downlink']['items']} items, "
+          f"{report['downlink']['blocks']} blocks, in chunks of {CHUNK_BLOCKS4}), dequantize "
+          f"at {report['downlink']['largest_item']} {report['downlink']['largest_shape']}")
+    return report
+
+
+def async_span_totals(events: list[dict]) -> dict[str, float]:
+    """Seconds per phase, summed over the worker threads' overlapping
+    spans of the device-synchronised trace (thread time, not wall)."""
+    spans = [e for e in events if e.get("ph") == "X"]
+
+    def total(pred):
+        return sum(e["dur"] for e in spans if pred(e)) / 1e6
+
+    return {
+        "training_s": total(lambda e: e["name"] == "client.train"),
+        "encode_s": total(lambda e: e["name"] == "kernel.quantize_batch"),
+        "downlink_transmit_s": total(lambda e: e["name"] == "wire.transmit"
+                                     and e["args"]["kind"] == "task_data"),
+        "uplink_pricing_s": total(lambda e: e["name"] == "wire.transmit"
+                                  and e["args"]["kind"] == "task_result"
+                                  and e["args"]["count_only"]),
+        "uplink_fold_transfer_s": total(lambda e: e["name"] == "wire.transmit"
+                                        and e["args"]["kind"] == "task_result"
+                                        and e["args"]["streaming_fold"]),
+        "fold_s": total(lambda e: e["name"] == "agg.accept_item"),
+        "decode_s": total(lambda e: e["name"] == "stage.decode.quantize"),
+        "settle_wait_s": total(lambda e: e["name"] == "sched.settle"),
+    }
+
+
+def hop_bytes(job) -> tuple[int, int]:
+    """Wire bytes down and up, summed over the run's completed round trips."""
+    down = up = 0
+    for e in job.sim.scheduler.timeline:
+        if e.kind.value == "completion":
+            down += e.data["result"].headers["wire_bytes_down"]
+            up += e.data["result"].headers["wire_bytes_up"]
+    return down, up
+
+
+def run_async(torch, dev) -> dict:
+    """The async runtime at full width: ``streaming_aggregation.json``
+    with qwen1.5-0.5b at its published widths, FedBuff over 3 clients
+    (6 tasks, buffer 2, 3 in flight) on a hetero fiber/lte network, nf4
+    downlink with its per-layer rules, blockwise8 + crc32 uplink folded
+    at each completion instant; ``zlib`` dropped. The launch counters are
+    zeroed just before the run and read just after, and must equal what
+    the path implies (:func:`async_launches`); the runtime must report 6
+    dispatches and completions, 3 model updates and no failure; every
+    tensor must move and stay finite. Before the run, the path's kernels
+    are held against their plain versions at its own shapes
+    (:func:`check_async_kernels`)."""
+    from repro_torch.fl.job import build_job
+    from repro_torch.kernels import ops
+
+    spec = async_spec()
+    kernels = check_async_kernels(torch, dev, spec)
+    torch.cuda.synchronize()
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    job = build_job({**spec, "trace": True}, device=dev)
+    result = job.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    names = list(job.init_weights)
+    want = {name: 0 for name in ops.KERNELS}
+    want.update(async_launches(spec, names))
+    print(f"async launches: {launches} (expected {want})")
+    if launches != want:
+        fail(f"kernel launches on the async path {launches} != {want}")
+    stats = result["runtime_stats"]
+    if (stats["dispatches"], stats["completions"], stats["model_updates"],
+            stats["failed_clients"], stats["dropouts"]) != (6, 6, 3, 0, 0):
+        fail(f"async runtime stats {stats}: expected 6 dispatches and completions, "
+             "3 model updates, no failures")
+    losses = result["history"]
+    if len(losses) != 6 or not all(math.isfinite(x) for x in losses):
+        fail(f"async: losses not finite: {losses}")
+    final, init = result["final_weights"], job.init_weights
+    if list(final) != names:
+        fail("async: final weights do not have the initial weights' names")
+    for name, w in final.items():
+        if w.shape != init[name].shape or w.device.type != dev.type:
+            fail(f"async: {name}: shape {tuple(w.shape)} on {w.device}")
+        if not bool(torch.isfinite(w).all()):
+            fail(f"async: {name}: non-finite final weights")
+        if torch.equal(w, init[name]):
+            fail(f"async: {name} did not move from its initial values")
+    down, up = hop_bytes(job)
+    largest = max(w.numel() * w.element_size() for w in init.values())
+    memory = result["telemetry"]["memory"]
+    report = {
+        "kernels": kernels,
+        "wall_s": wall, "sim_time_s": result["sim_time_s"], "runtime_stats": stats,
+        "staleness": job.sim.scheduler.policy.staleness_seen,
+        "launches": launches, "losses": losses, "messages": result["messages"],
+        "wire_bytes": result["wire_bytes"], "wire_bytes_down": down, "wire_bytes_up": up,
+        "params": sum(w.numel() for w in final.values()),
+        "largest_item_bytes": largest, "meter_peak_bytes": memory["peak"],
+        "meter_peak_over_largest_item": memory["peak"] / largest,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_before_bytes": allocated_before,
+        "spans": async_span_totals(job.sim.tracer.chrome_trace()["traceEvents"]),
+    }
+    print(f"async: {report['params']} params, {result['messages']} messages, wall "
+          f"{wall:.3f} s, sim_time_s {result['sim_time_s']:.6f}, wire bytes down {down} "
+          f"up {up} (total {result['wire_bytes']}), staleness {report['staleness']}, "
+          f"losses {losses}")
+    print(f"async: MemoryMeter peak {memory['peak']} bytes "
+          f"({report['meter_peak_over_largest_item']:.3f} x the largest item, "
+          f"{largest} bytes); max_memory_allocated {report['max_memory_allocated_bytes']} "
+          f"bytes ({allocated_before} before)")
+    print("async spans (s, summed over threads): " + ", ".join(
+        f"{k}={v:.4f}" for k, v in report["spans"].items()))
+    del job, result, final, init
+    release(torch)
+    return report
+
+
+def timeline(job) -> list[tuple]:
+    return [(e.kind.value, e.client, e.time, e.seq) for e in job.sim.scheduler.timeline]
+
+
+def check_async_against_cpu(torch, dev) -> dict:
+    """Both async example specs as they stand (smoke width, zlib), card vs
+    CPU from identical weights. Fixed updates: the timeline, runtime stats,
+    ``sim_time_s``, each completion's wire bytes and the final weights must
+    be identical. Trained: the event order, counts and staleness must be
+    identical, times and wire bytes within 1e-4 relative (the loss in each
+    header and zlib's input differ in the last bits), and the weights
+    within C1's bound of the CPU's (:func:`c1_counts`, which
+    tests/test_torch_slice_async.py holds the reference to as well). Then
+    ``python -m repro_torch.fl.job`` runs ``streaming_aggregation.json``
+    unchanged on the card."""
+    from repro_torch.fl.job import build_job, initial_weights, normalize_spec
+
+    out = {}
+    for path in (ASYNC_JOB, ASYNC_HETERO_JOB):
+        label = os.path.basename(path)
+        with open(path) as fh:
+            spec = json.load(fh)
+        init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+        runs = {}
+        for fixed in (True, False):
+            for d in ("cpu", dev):
+                jb = build_job(spec, device=d, weights=init)
+                if fixed:
+                    for i, proxy in enumerate(jb.sim.proxies):
+                        proxy.executor.train_fn = fixed_train_fn(init, i, 0.05 * (i + 1))
+                res = jb.run()
+                runs[(fixed, str(d))] = (
+                    timeline(jb), res["runtime_stats"], res["sim_time_s"],
+                    [(e.client, e.data["result"].headers["wire_bytes_down"],
+                      e.data["result"].headers["wire_bytes_up"])
+                     for e in jb.sim.scheduler.timeline if e.kind.value == "completion"],
+                    {k: v.cpu() for k, v in res["final_weights"].items()},
+                    jb.sim.scheduler.policy.staleness_seen)
+        want, got = runs[(True, "cpu")], runs[(True, str(dev))]
+        if got[:4] != want[:4] or got[5] != want[5]:
+            fail(f"{label} fixed updates: timeline, stats, sim time or wire bytes differ "
+                 "between card and CPU")
+        for name, w in want[4].items():
+            if not torch.equal(bits(torch, got[4][name]), bits(torch, w)):
+                fail(f"{label} fixed updates: weights differ between card and CPU at {name}")
+        want, got = runs[(False, "cpu")], runs[(False, str(dev))]
+        order = [[e[:2] + e[3:] for e in r[0]] for r in (want, got)]
+        stats = [{k: v for k, v in r[1].items() if k != "sim_time_s"} for r in (want, got)]
+        if order[0] != order[1] or stats[0] != stats[1] or want[5] != got[5]:
+            fail(f"{label} trained: event order, stats or staleness differ between card "
+                 "and CPU")
+        t_rel = max(abs(a[2] - b[2]) / max(abs(b[2]), 1e-30)
+                    for a, b in zip(got[0], want[0]))
+        b_rel = max(abs(a[2] - b[2]) / b[2] for a, b in zip(got[3], want[3]))
+        if t_rel > 1e-4 or b_rel > 1e-4:
+            fail(f"{label} trained: times ({t_rel:.3g}) or uplink bytes ({b_rel:.3g}) "
+                 "differ by more than 1e-4 relative")
+        c1 = c1_counts(torch, want[4], got[4],
+                       2 * normalize_spec(spec)["lr"] * spec["local_steps"])
+        print(f"{label}, smoke width, card vs CPU: fixed updates identical (timeline of "
+              f"{len(want[0])} events, sim_time_s {runs[(True, 'cpu')][2]:.6f}, weights "
+              f"bitwise); trained: same event order and stats, times within {t_rel:.3g}, "
+              f"uplink bytes within {b_rel:.3g}; of {c1['elements']} elements "
+              f"{c1['beyond_step']} beyond the step bound (worst {c1['worst_of_step']:.4f} of "
+              f"it), {c1['beyond_gap']} beyond the gap bound (worst {c1['worst_of_gap']:.4f})")
+        if not c1["holds"]:
+            fail(f"{label} trained: the card's weights are beyond C1's bound of the CPU's: {c1}")
+        out[label] = {"sim_time_s": want[2], "completions": want[1]["completions"],
+                      "trained_time_rel": t_rel, "trained_bytes_rel": b_rel, "trained_c1": c1}
+
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.fl.job", ASYNC_JOB],
+                          capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.fl.job {os.path.relpath(ASYNC_JOB, REPO)} exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)
+    rs = summary["runtime_stats"]
+    if (summary["policy"] != "fedbuff" or rs["completions"] != 6 or rs["model_updates"] != 3
+            or len(summary["history"]) != 6
+            or not all(math.isfinite(x) for x in summary["history"])):
+        fail(f"the job entry point's async summary on the card is wrong: {summary}")
+    print(f"python -m repro_torch.fl.job streaming_aggregation.json on the card: "
+          f"{summary['messages']} messages, {summary['wire_bytes']} wire bytes, "
+          f"sim_time_s {summary['sim_time_s']:.6f}, losses {summary['history']}")
+    out["cli"] = {k: summary[k] for k in ("messages", "wire_bytes", "sim_time_s", "history")}
+    return out
+
+
+def check_secure_agg_against_cpu(torch, dev) -> dict:
+    """Secure aggregation card vs CPU on a full-width qwen1.5-0.5b item
+    (:data:`SECURE_AGG_SHAPES`), 3 clients: each client's masked ``uint32``
+    grid and the unmasked mean bitwise equal, and the masks cancel (the
+    masked grids sum to the plain grids mod 2**32)."""
+    from repro_torch.core import secure_agg as sa
+    from repro_torch.core.messages import Message, MessageKind
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = SECURE_AGG_SHAPES
+    clients = [0, 1, 2]
+    payloads = [{k: torch.randn(s, generator=gen) * 0.02 for k, s in shapes.items()}
+                for _ in clients]
+    outs = {}
+    for d in ("cpu", dev):
+        agg = sa.SecureAggregator(len(clients), device=d)
+        masked = []
+        for i, p in zip(clients, payloads):
+            m = sa.SecureMaskFilter(i, clients, base_seed=7, device=d).process(
+                Message(MessageKind.TASK_RESULT, dict(p), {"round": 0, "num_samples": 4}))
+            masked.append({k: v.cpu() for k, v in m.payload.items()})
+            agg.accept(m)
+        outs[str(d)] = (masked, {k: v.cpu() for k, v in agg.finish().items()})
+    (want_m, want), (got_m, got) = outs["cpu"], outs[str(dev)]
+    for i in clients:
+        for k in shapes:
+            if not torch.equal(got_m[i][k].to(torch.int64), want_m[i][k].to(torch.int64)):
+                fail(f"secure-agg: client {i}'s masked grid {k} differs between card and CPU")
+    for k in shapes:
+        if not torch.equal(bits(torch, got[k]), bits(torch, want[k])):
+            fail(f"secure-agg: the unmasked mean of {k} differs between card and CPU")
+        total = sum(m[k].to(torch.int64) for m in got_m) % sa.MOD
+        plain = sum(sa._to_grid(p[k]) for p in payloads) % sa.MOD
+        if not torch.equal(total, plain):
+            fail(f"secure-agg: the masks of {k} do not cancel")
+    n = sum(math.prod(s) for s in shapes.values())
+    print(f"secure-agg, {len(clients)} clients x {n} values, card vs CPU: masked grids and "
+          "unmasked means bitwise equal; masks cancel")
+    return {"values": n, "clients": len(clients)}
 
 
 def serialized_nbytes(payload: dict) -> int:
@@ -2116,6 +2547,9 @@ def main(argv=None) -> int:
     parity_nf4 = check_nf4_against_cpu(torch, dev)
     legacy = run_legacy(torch, dev)
     parity_legacy = check_legacy_against_cpu(torch, dev)
+    async_run = run_async(torch, dev)
+    parity_async = check_async_against_cpu(torch, dev)
+    secure_agg = check_secure_agg_against_cpu(torch, dev)
     table2_rows, bw8_message = table2(torch, dev)
     table3_rows = table3(torch, bw8_message)
     del bw8_message
@@ -2152,7 +2586,8 @@ def main(argv=None) -> int:
              "serve_xlstm": serve_xlstm}
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": paths[path]["launches"][name], **rows[name]}
+         "launches": paths[path]["launches"][name],
+         "launches_async": async_run["launches"][name], **rows[name]}
         for name, (source, replaces, path) in KERNELS.items()
     ]
     if args.out:
@@ -2164,6 +2599,8 @@ def main(argv=None) -> int:
                        "kernels": kernels, "slice": bw8, "slice_nf4": nf4,
                        "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
                        "legacy": legacy, "cpu_parity_legacy": parity_legacy,
+                       "async": async_run, "cpu_parity_async": parity_async,
+                       "secure_agg": secure_agg,
                        "table2": table2_rows, "table3": table3_rows,
                        "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
                        "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,

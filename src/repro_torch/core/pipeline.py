@@ -36,8 +36,8 @@ on the CPU) and decodes land there; payload bytes on the wire are numpy.
 
 Ported stages: ``quantize`` (``blockwise8``, ``nf4``, ``fp4``, ``fp16``,
 ``fp32``, with per-layer rules), ``ef-quantize``, ``adaptive``,
-``dp-noise``, ``zlib``, ``crc32`` and ``delta``. The reference's other
-stage names (``secure-mask``, ``zstd``, ``topk``, ``lora``) raise
+``dp-noise``, ``secure-mask``, ``zlib``, ``crc32`` and ``delta``. The
+reference's other stage names (``zstd``, ``topk``, ``lora``) raise
 ``NotImplementedError`` until ported (ROADMAP A4).
 
 Legacy interop: :func:`legacy_wire_pipelines` adapts the four-point
@@ -57,6 +57,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core import secure_agg as sa
 from repro_torch.core import serialization as ser
 from repro_torch.core.filters import (
     AdaptiveQuantizeFilter,
@@ -88,7 +89,7 @@ _U32 = struct.Struct("<I")
 META_ITEM = "__meta__"
 
 #: stage names the reference registers that this package has not ported
-NOT_PORTED_STAGES = ("lora", "secure-mask", "topk", "zstd")
+NOT_PORTED_STAGES = ("lora", "topk", "zstd")
 
 
 class WireIntegrityError(ValueError):
@@ -553,6 +554,42 @@ class DPNoiseStage(Stage):
         return gaussian_noise(self._rng, self.sigma, value)
 
 
+@register_stage("secure-mask")
+class SecureMaskStage(Stage):
+    """Pairwise additive masking (Bonawitz-style), per item: fixed-point
+    encode plus per-pair mask streams keyed by the ``round`` header, on
+    the pipeline's device. Decode is the identity — the server's
+    :class:`~repro_torch.core.secure_agg.SecureAggregator` unmasks by
+    summation, never per client.
+    """
+
+    def __init__(self, client_index: int, all_clients: list[int], base_seed: int = 0) -> None:
+        self.client_index = client_index
+        self.all_clients = list(all_clients)
+        self.base_seed = base_seed
+
+    @classmethod
+    def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> SecureMaskStage:
+        if arg is not None:
+            raise ValueError("secure-mask is configured per client; use dict spec kwargs")
+        return cls(**kwargs)
+
+    @classmethod
+    def for_decode(cls) -> SecureMaskStage:
+        return cls(0, [])  # decode is the identity: masked grids stay masked
+
+    def begin_encode(self, message: Message, ctx: WireContext) -> Message:
+        ctx.headers["secure_masked"] = True
+        return message
+
+    def encode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if not _is_plain_float(value):
+            return value
+        rnd = int(ctx.headers.get("round", 0))
+        return sa.masked_grid(value, self.client_index, self.all_clients,
+                              self.base_seed, name, rnd, ctx.device)
+
+
 @register_stage("zlib")
 class ZlibStage(Stage):
     """Byte-level DEFLATE compression of each serialized item — spec
@@ -763,14 +800,14 @@ def _filter_is_stateful(filt: Filter) -> bool:
     """Whether a legacy filter depends on the order of the transfers it
     sees: an explicit ``stateful`` attribute wins; the known stateless
     built-ins are not; unknown third-party filters are (the conservative
-    default). The reference also lists its ``SecureMaskFilter`` here,
-    which arrives with ``secure_agg.py`` (ROADMAP A4)."""
+    default)."""
     explicit = getattr(filt, "stateful", None)
     if explicit is not None:
         return bool(explicit)
     return not isinstance(
         filt,
-        (QuantizeFilter, DequantizeFilter, SelectiveQuantizeFilter, AdaptiveQuantizeFilter),
+        (QuantizeFilter, DequantizeFilter, SelectiveQuantizeFilter, AdaptiveQuantizeFilter,
+         sa.SecureMaskFilter),
     )
 
 
@@ -868,6 +905,11 @@ class WirePipeline:
                          or _overrides(s, "decode_item_bytes")
                          or _overrides(s, "encode_item_views")]
         self._by_name = {s.name: s for s in self.stages}
+
+    @property
+    def stateful(self) -> bool:
+        """Whether any stage depends on the order of the transfers it sees."""
+        return any(s.stateful for s in self.stages)
 
     def __repr__(self) -> str:
         return f"WirePipeline([{', '.join(s.name for s in self.stages)}])"

@@ -2,7 +2,7 @@
 model, clients, data partitioning, the wire stack of each hop,
 transmission, aggregation — and the runner builds and executes it.
 
-Mirror of ``src/repro/fl/job.py`` for the sequential simulator::
+Mirror of ``src/repro/fl/job.py``::
 
     spec = {"arch": "llama3.2-1b", "smoke": False, "rounds": 1, "clients": 2,
             "local_steps": 2, "batch": 4, "seq": 32, "partition": "iid",
@@ -23,7 +23,14 @@ Filter chains (the paper's two-way scheme, optionally with error
 feedback, DP noise or link-adaptive precision), adapted through the
 whole-message shim; they are mutually exclusive with ``"pipeline"``. With
 ``{"fmt": "adaptive"}`` (or an ``"adaptive"`` pipeline stage) each
-client's format is reported in ``result["adaptive_fmts"]``.
+client's format is reported in ``result["adaptive_fmts"]``; with a
+runtime network, each client's precision tracks its simulated link.
+
+The ``"runtime"`` block selects the async scenario engine
+(:mod:`repro_torch.runtime`): a registered policy (``sync``, ``fedbuff``,
+``fedasync``, ``tiered``), ``max_concurrency``, seeded dropouts, a
+``network`` and an ``availability`` trace. The result then carries
+``sim_time_s``, ``runtime_stats`` and ``policy``.
 
 Entry points run on ``cuda`` unless the caller passes ``device``; with no
 CUDA device they raise. On CUDA the job turns TF32 off for matmuls and
@@ -37,10 +44,9 @@ scales, or from ``weights=`` — e.g. the reference's own weights carried
 across with :func:`repro_torch.utils.trees.from_reference_state` — so both
 packages can start from the same numbers.
 
-Not ported yet (they raise): the async ``runtime`` block (ROADMAP A8),
-so no simulated network binds the adaptive filters and stages; the
-live-plane keys (``quorum``, ``checkpoint``, ``chaos``; A9) and
-``kernel_backend`` (the port dispatches by device).
+Not ported yet (they raise): the live-plane keys (``quorum``,
+``checkpoint``, ``chaos``; ROADMAP A9) and ``kernel_backend`` (the port
+dispatches by device).
 """
 from __future__ import annotations
 
@@ -111,7 +117,6 @@ DEFAULTS: dict[str, Any] = {
 
 #: spec keys whose features wait for a later slice, with the queue item
 _NOT_PORTED_KEYS = {
-    "runtime": "the async runtime (ROADMAP A8)",
     "quorum": "the live federation plane (ROADMAP A9)",
     "checkpoint": "the live federation plane (ROADMAP A9)",
     "chaos": "the live federation plane (ROADMAP A9)",
@@ -151,23 +156,25 @@ def aggregator_spec(spec: dict[str, Any]) -> Any:
     return agg
 
 
-def _adaptive_filter(q: dict[str, Any], device: Any) -> AdaptiveQuantizeFilter:
-    # the reference binds the runtime's network here; without the runtime
-    # (ROADMAP A8) the fleet-wide bandwidth decides
-    return AdaptiveQuantizeFilter(
+def _adaptive_filter(q: dict[str, Any], device: Any,
+                     network: Optional[Any]) -> AdaptiveQuantizeFilter:
+    f = AdaptiveQuantizeFilter(
         bandwidth_bps=float(q.get("bandwidth_mbps", 80.0)) * 1e6,  # wifi-class fallback
         budget_s=float(q.get("budget_s", 1.0)),
         min_params=int(q.get("min_params", 0)),
         device=device,
     )
+    if network is not None:
+        f.bind_network(network)
+    return f
 
 
-def _build_pipelines(spec: dict[str, Any],
-                     device: Any) -> tuple[dict[str, Any], list[AdaptiveQuantizeStage]]:
+def _build_pipelines(spec: dict[str, Any], device: Any, network: Optional[Any] = None
+                     ) -> tuple[dict[str, Any], list[AdaptiveQuantizeStage]]:
     """The ``"pipeline"`` spec block as simulator pipelines on ``device``,
-    and the adaptive stages found (reported in ``result["adaptive_fmts"]``).
-    Aggregators that fold wire-form payloads get an uplink left
-    undecoded."""
+    and the adaptive stages found (reported in ``result["adaptive_fmts"]``;
+    bound to the runtime's ``network`` when there is one). Aggregators
+    that fold wire-form payloads get an uplink left undecoded."""
     p = spec["pipeline"] or {}
     if spec.get("quantization") or spec.get("dp_sigma"):
         raise ValueError(
@@ -200,6 +207,8 @@ def _build_pipelines(spec: dict[str, Any],
                         "server_quantized_aggregation does not compose with the "
                         "adaptive stage: clients may ship mixed formats"
                     )
+                if network is not None:
+                    stage.bind_network(network)
                 adaptive.append(stage)
     return pipelines, adaptive
 
@@ -227,7 +236,7 @@ def build_pipelines_from_spec(spec: dict[str, Any], device: Any = None) -> dict[
     }
 
 
-def _build_filters(spec: dict[str, Any], device: Any):
+def _build_filters(spec: dict[str, Any], device: Any, network: Optional[Any] = None):
     """Two-way scheme (+optional EF / DP / link-adaptive) from the job
     spec, as the reference builds it: one filter instance per point,
     shared by every client — one DP generator drawn in client order, one
@@ -250,7 +259,7 @@ def _build_filters(spec: dict[str, Any], device: Any):
                 )
 
             def mk():
-                adaptive.append(_adaptive_filter(q, device))
+                adaptive.append(_adaptive_filter(q, device, network))
                 return adaptive[-1]
         elif q.get("error_feedback"):
             def mk():
@@ -272,6 +281,62 @@ def _build_filters(spec: dict[str, Any], device: Any):
             [DPGaussianNoiseFilter(spec["dp_sigma"], seed=spec["seed"])]
         )
     return server, client, adaptive
+
+
+def _build_runtime(spec: dict[str, Any], aggregator: Any, client_names: list[str],
+                   device: torch.device) -> dict[str, Any]:
+    """The ``"runtime"`` spec block as FLSimulator kwargs (empty without one);
+    the barrier-free policies keep their weights on ``device``."""
+    r = spec.get("runtime")
+    if not r:
+        return {}
+    # imported here: repro_torch.runtime imports repro_torch.fl.controller
+    from repro_torch.runtime import (
+        RuntimeConfig,
+        availability_from_spec,
+        network_from_spec,
+        polynomial_staleness,
+    )
+    from repro_torch.runtime.async_agg import build_policy
+
+    r = dict(r)
+    policy_name = r.get("policy", "sync")
+    if policy_name in ("fedbuff", "fedasync") and spec.get("server_quantized_aggregation"):
+        # these policies aggregate deltas/weights directly (not through the
+        # aggregator) and skip QuantizedTensor payload items — quantized
+        # server ingress would silently aggregate nothing
+        raise ValueError(
+            f"server_quantized_aggregation is not supported with policy "
+            f"{policy_name!r}; it requires the aggregator path (sync/tiered)"
+        )
+    seed = int(r.get("seed", spec["seed"]))
+    network = network_from_spec(r["network"], client_names) if r.get("network") else None
+    availability = (
+        availability_from_spec(r["availability"], client_names)
+        if r.get("availability") else None
+    )
+    config = RuntimeConfig(
+        seed=seed,
+        max_concurrency=int(r.get("max_concurrency", 8)),
+        dropout_prob=float(r.get("dropout_prob", 0.0)),
+        max_retries=int(r.get("max_retries", 2)),
+    )
+    policy = build_policy(policy_name, r, {
+        "aggregator": aggregator,
+        "rounds": spec["rounds"],
+        "client_names": client_names,
+        "network": network,
+        "seed": seed,
+        "total_tasks": int(r.get("total_tasks", spec["rounds"] * len(client_names))),
+        "staleness": polynomial_staleness(float(r.get("staleness_alpha", 0.5))),
+        "device": device,
+    })
+    return {
+        "runtime": config,
+        "policy": policy,
+        "network": network,
+        "availability": availability,
+    }
 
 
 def _client_datasets(spec: dict[str, Any], cfg: Any) -> list[Any]:
@@ -378,6 +443,10 @@ class Job:
             "round_log": self.sim.round_log,
             "telemetry": self.sim.telemetry(),
         }
+        if self.sim.scheduler is not None:
+            out["sim_time_s"] = self.sim.sim_time_s
+            out["runtime_stats"] = self.sim.scheduler.stats.as_dict()
+            out["policy"] = self.sim.scheduler.policy.name
         if self.sim.tracer is not None and isinstance(self.spec.get("trace"), str):
             out["trace"] = self.sim.tracer.write(self.spec["trace"])
         if self.adaptive_filters:
@@ -422,15 +491,18 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
     tracer = None
     if spec.get("trace"):
         tracer = Tracer(sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    agg = build_aggregator(aggregator_spec(spec), device=device)
+    runtime_kwargs = _build_runtime(spec, agg, [ex.name for ex in executors], device)
+    network = runtime_kwargs.get("network")
     if spec.get("pipeline"):
-        pipelines, adaptive = _build_pipelines(spec, device)
+        pipelines, adaptive = _build_pipelines(spec, device, network)
         wire_kwargs: dict[str, Any] = {"pipelines": pipelines}
     else:
-        server_filters, client_filters, adaptive = _build_filters(spec, device)
+        server_filters, client_filters, adaptive = _build_filters(spec, device, network)
         wire_kwargs = {"server_filters": server_filters, "client_filters": client_filters}
     sim = FLSimulator(
         executors,
-        build_aggregator(aggregator_spec(spec), device=device),
+        agg,
         SimulationConfig(
             num_rounds=spec["rounds"],
             transmission=spec["transmission"],
@@ -441,6 +513,7 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
         trace=tracer,
         device=device,
         **wire_kwargs,
+        **runtime_kwargs,
     )
     return Job(spec, sim, init, history, adaptive)
 

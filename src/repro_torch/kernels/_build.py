@@ -58,6 +58,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: guards every wrapper's ``launches`` counter: the async runtime launches
+#: kernels from worker threads, and a bare ``+=`` there can lose a count
+count_lock = threading.Lock()
 
 
 def find_nvcc() -> str:

@@ -90,7 +90,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                   int(q.dtype == torch.bfloat16), int(bool(causal)),
                   int(window is not None), 0 if window is None else int(window),
                   1.0 / math.sqrt(hd))
-    flash_attention.launches += 1
+    with _build.count_lock:
+        flash_attention.launches += 1
     return out
 
 

@@ -53,7 +53,8 @@ def dequant_accumulate8_into(
         return acc
     _build.launch("bw8_fold", q.device, acc.data_ptr(), q.data_ptr(),
                   absmax.data_ptr(), float(weight), q.shape[0])
-    dequant_accumulate8_into.launches += 1
+    with _build.count_lock:
+        dequant_accumulate8_into.launches += 1
     return acc
 
 
@@ -98,7 +99,8 @@ def dequant_accumulate8(qs: torch.Tensor, absmaxes: torch.Tensor,
         return out
     _build.launch("bw8_agg", qs.device, qs.data_ptr(), absmaxes.data_ptr(),
                   weights.data_ptr(), out.data_ptr(), k, nblocks)
-    dequant_accumulate8.launches += 1
+    with _build.count_lock:
+        dequant_accumulate8.launches += 1
     return out
 
 

@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels import (
+    _build,
     flash_attention,
     fused_dequant_agg,
     quant_blockwise8,
@@ -46,12 +47,14 @@ KERNELS = {
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    with _build.count_lock:
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _build.count_lock:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 def pad_to_blocks(x: torch.Tensor, block: int = BLOCK8) -> torch.Tensor:

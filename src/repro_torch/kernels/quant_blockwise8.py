@@ -57,7 +57,8 @@ def quantize_blockwise8(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         return q, absmax
     _build.launch("bw8_quantize", x2d.device, x2d.data_ptr(), q.data_ptr(),
                   absmax.data_ptr(), nblocks)
-    quantize_blockwise8.launches += 1
+    with _build.count_lock:
+        quantize_blockwise8.launches += 1
     return q, absmax
 
 
@@ -78,7 +79,8 @@ def dequantize_blockwise8(q: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor
         return out
     _build.launch("bw8_dequantize", q.device, q.data_ptr(), absmax.data_ptr(),
                   out.data_ptr(), q.shape[0])
-    dequantize_blockwise8.launches += 1
+    with _build.count_lock:
+        dequantize_blockwise8.launches += 1
     return out
 
 

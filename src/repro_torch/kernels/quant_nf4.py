@@ -58,7 +58,8 @@ def quantize_4bit(x2d: torch.Tensor, fmt: str) -> tuple[torch.Tensor, torch.Tens
         return packed, absmax
     _launch("fb4_quantize", fmt, x2d.device, x2d.data_ptr(), packed.data_ptr(),
             absmax.data_ptr(), nblocks)
-    quantize_4bit.launches += 1
+    with _build.count_lock:
+        quantize_4bit.launches += 1
     return packed, absmax
 
 
@@ -80,7 +81,8 @@ def dequantize_4bit(packed: torch.Tensor, absmax: torch.Tensor, fmt: str) -> tor
         return out
     _launch("fb4_dequantize", fmt, packed.device, packed.data_ptr(), absmax.data_ptr(),
             out.data_ptr(), packed.shape[0])
-    dequantize_4bit.launches += 1
+    with _build.count_lock:
+        dequantize_4bit.launches += 1
     return out
 
 

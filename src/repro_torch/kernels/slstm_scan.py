@@ -117,7 +117,8 @@ def _launch(gx: torch.Tensor, r: torch.Tensor,
         _build.launch("slstm_scan_fwd", gx.device, gx.data_ptr(), r.data_ptr(), h.data_ptr(),
                       state.data_ptr(), B, S, H, hd, int(gx.dtype == torch.bfloat16),
                       layout.split, layout.threads, layout.smem_bytes)
-        slstm_scan.launches += 1
+        with _build.count_lock:
+            slstm_scan.launches += 1
     return h, state
 
 

@@ -29,6 +29,7 @@ _NP_OF_TORCH = {
     torch.float64: np.float64, torch.float32: np.float32, torch.float16: np.float16,
     torch.int64: np.int64, torch.int32: np.int32, torch.int16: np.int16,
     torch.int8: np.int8, torch.uint8: np.uint8, torch.bool: np.bool_,
+    torch.uint32: np.uint32,   # the secure-mask grid on the wire
 }
 _TORCH_OF_NP = {np.dtype(v): k for k, v in _NP_OF_TORCH.items()}
 

@@ -371,3 +371,91 @@ def test_legacy_round_on_the_card_matches_the_cpu(cuda, transmission):
     assert got["telemetry"]["memory"] == want["telemetry"]["memory"]
     for name, w in want["final_weights"].items():
         assert torch.equal(_bits(got["final_weights"][name].cpu()), _bits(w)), name
+
+
+@pytest.mark.cuda
+def test_fedbuff_flush_and_secagg_finish_on_the_card_equal_the_cpu(cuda):
+    """FedBuff's delta fold and flush (``(value - base) * w`` summed, then
+    ``w + lr * dsum / wsum``) and SecureAggregator's unmasked mean
+    (``_from_grid(total) / n``) divide by device tensors, so the card
+    gives the CPU's bits; weights, lr and sums are chosen so a multiply
+    by a reciprocal would round differently somewhere."""
+    from repro_torch.core import secure_agg as sa
+    from repro_torch.core.messages import Message, MessageKind
+    from repro_torch.runtime.async_agg import Dispatch, FedBuffPolicy
+
+    gen = torch.Generator().manual_seed(0)
+    base = {"w": torch.randn(1 << 16, generator=gen), "b": torch.randn(4099, generator=gen)}
+    updates = [{k: v + torch.randn(v.shape, generator=gen) * 0.3 for k, v in base.items()}
+               for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        pol = FedBuffPolicy(3, buffer_size=3, server_lr=0.7, device=dev)
+        dispatches = pol.begin(base, ["a", "b", "c"])
+        for d, (n, upd) in zip(dispatches, zip((3, 7, 11), updates)):
+            pol.on_result(Dispatch(d.client, d.task, d.version),
+                          Message(MessageKind.TASK_RESULT,
+                                  {k: v.to(dev) for k, v in upd.items()}, {"num_samples": n}))
+        agg = sa.SecureAggregator(3, device=dev)
+        for i, upd in enumerate(updates):
+            agg.accept(sa.SecureMaskFilter(i, [0, 1, 2], device=dev).process(
+                Message(MessageKind.TASK_RESULT, dict(upd), {"round": 0})))
+        outs[str(dev)] = (pol.finish(), agg.finish())
+    (want_w, want_m), (got_w, got_m) = outs["cpu"], outs[str(cuda)]
+    for name in base:
+        assert got_w[name].device.type == "cuda" and got_m[name].device.type == "cuda"
+        assert torch.equal(_bits(got_w[name].cpu()), _bits(want_w[name])), name
+        assert torch.equal(_bits(got_m[name].cpu()), _bits(want_m[name])), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["streaming_aggregation", "async_hetero_pipeline"])
+def test_async_job_on_the_card_matches_the_cpu(cuda, name):
+    """An example async job at smoke width with fixed client updates: the
+    card and the CPU give the same timeline, runtime stats, wire bytes and
+    final weights; every kernel the path implies launched on the card, as
+    often as the spec's rules imply (``chip_smoke.async_launches``)."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    from repro_torch.fl.job import build_job, initial_weights
+
+    spec = json.loads((Path(__file__).resolve().parents[1] / "examples" / "jobs"
+                       / f"{name}.json").read_text())
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+
+    def fixed(index):
+        def train_fn(_params, rnd):
+            rng = np.random.default_rng((index, rnd))
+            return ({k: v + rng.standard_normal(v.shape).astype(np.float32)
+                     * np.float32(0.05 * (index + 1)) for k, v in init.items()},
+                    3 + 5 * index, {})
+        return train_fn
+
+    outs = {}
+    for dev in ("cpu", cuda):
+        jb = build_job(spec, device=dev, weights=init)
+        for i, proxy in enumerate(jb.sim.proxies):
+            proxy.executor.train_fn = fixed(i)
+        ops.reset_launch_counts()
+        out = jb.run()
+        timeline = [(e.kind.value, e.client, e.time, e.seq) for e in jb.sim.scheduler.timeline]
+        outs[str(dev)] = (out, timeline, ops.launch_counts())
+    (want, want_tl, cpu_launches), (got, got_tl, launches) = outs["cpu"], outs[str(cuda)]
+    assert cpu_launches == {k: 0 for k in ops.KERNELS}
+    assert got_tl == want_tl
+    assert got["runtime_stats"] == want["runtime_stats"]
+    assert got["sim_time_s"] == want["sim_time_s"]
+    assert got["telemetry"]["traffic"] == want["telemetry"]["traffic"]
+    assert got.get("adaptive_fmts") == want.get("adaptive_fmts")
+    assert launches["dequant_accumulate8_into"] == 0
+    if name == "streaming_aggregation":
+        root = Path(__file__).resolve().parents[1]
+        loader = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
+        chip_smoke = importlib.util.module_from_spec(loader)
+        loader.loader.exec_module(chip_smoke)
+        assert launches == {**{k: 0 for k in ops.KERNELS},
+                            **chip_smoke.async_launches(spec, list(init))}
+    for k, w in want["final_weights"].items():
+        assert torch.equal(_bits(got["final_weights"][k].cpu()), _bits(w)), k

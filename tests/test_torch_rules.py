@@ -163,3 +163,80 @@ def test_sdpa_or_flash_on_cpu_tensors_never_launches():
         out = L.sdpa_or_flash(q, k, v, cfg, causal=True, window=window)
         assert tuple(out.shape) == (1, s, cfg.num_heads * hd)
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
+
+
+ASYNC_MODULES = ("repro_torch.runtime", "repro_torch.runtime.events",
+                 "repro_torch.runtime.network", "repro_torch.runtime.async_agg",
+                 "repro_torch.runtime.scheduler", "repro_torch.core.secure_agg")
+
+
+def test_async_runtime_and_secure_agg_import_neither_jax_nor_the_reference():
+    """The async runtime and secure aggregation, imported in a fresh
+    interpreter whose import system refuses ``jax`` and ``repro``."""
+    code = textwrap.dedent("""
+        import importlib, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, sys.argv[1])
+        for mod in sys.argv[2:]:
+            importlib.import_module(mod)
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT / "src"), *ASYNC_MODULES],
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+    for mod in ASYNC_MODULES:
+        path = PORT.joinpath(*mod.split(".")[1:])
+        src = (path / "__init__.py" if path.is_dir() else path.with_suffix(".py")).read_text()
+        assert not FORBIDDEN.search(src), mod
+
+
+def test_launch_counters_are_exact_under_threads(monkeypatch):
+    """8 threads x 1000 launches through the blockwise8 quantize wrapper
+    count 8000. The kernel call and the CUDA-tensor check are stubbed (no
+    card here), so meta tensors take the wrapper's launch branch, as a
+    CUDA tensor does."""
+    import threading
+
+    from repro_torch.kernels import _build, ops, quant_blockwise8
+    monkeypatch.setattr(_build, "launch", lambda *a, **k: None)
+    monkeypatch.setattr(quant_blockwise8, "check_blocks", lambda *a, **k: None)
+    x = torch.empty((1, 4096), dtype=torch.float32, device="meta")
+    ops.reset_launch_counts()
+    start = threading.Barrier(8)
+    errors = []
+
+    def work():
+        try:
+            start.wait(timeout=30)
+            for _ in range(1000):
+                quant_blockwise8.quantize_blockwise8(x)
+        except Exception as exc:  # reported below: a thread cannot raise into the test
+            errors.append(exc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    assert counts["quantize_blockwise8"] == 8000
+    assert sum(counts.values()) == 8000
