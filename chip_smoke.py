@@ -48,6 +48,20 @@ both async example specs as they stand at smoke width on the card
 against the CPU (fixed updates identical, trained within the stated
 bound); secure aggregation's masked grids and mean card vs CPU; and
 ``python -m repro_torch.fl.job`` on ``streaming_aggregation.json``.
+Then the LoRA plane: every full-width llama3.2-1b item the ``lora`` stage
+decomposes checked (the uplink encoded twice to the same bytes, canonical
+signs, the kept singular values against a float64 eigensolve of the
+item's Gram matrix, fidelity against the discarded singular mass, the
+SVD time of each); ``examples/jobs/lora_federation.json`` at full width
+(4 clients, 2 rounds, as it stands), the counters zeroed before and
+checked after (one B4 and one B5 a leftover item an uplink, nothing
+else), with the factor bytes the shapes imply and the merge time of each
+item, then B4 and B5 bitwise against their plain versions on the very
+values the path quantized; the spec as it stands card vs CPU with two
+forms of fixed updates (Gaussian, and with a well-separated rank-8 part)
+and through ``python -m repro_torch.fl.job``; and ``topk`` and ``bf16``
+on one full-width item,
+card vs CPU bitwise (and what torch's own card cast gives for NaNs).
 Then the paper's Table II on the card (the full-width state through
 ``QuantizeFilter`` in fp16, blockwise8, nf4 and fp4, serialized bytes
 against the byte model and the paper) and Table III on its host (the
@@ -90,6 +104,10 @@ exactly one sLSTM-scan launch per sLSTM layer (6) after; smoke-width
 serving on the card against the CPU at a prompt of 200 (every prefill
 length goes through the kernel); and a backward through the kernel, which
 must raise.
+
+``--svd-drivers`` also times both exact cuSOLVER SVD drivers (``gesvd``,
+``gesvdj``) once on the largest decomposed item, the measurement that
+chose ``ops.SVD_DRIVER``.
 
 Output: the card, build and per-kernel lines, per-phase wall times, then
 the card's name and power limit, one JSON line with every kernel's
@@ -142,12 +160,25 @@ LEGACY_JOB = os.path.join(REPO, "examples", "jobs", "legacy_quantized.json")
 #: at smoke width card vs CPU
 ASYNC_JOB = os.path.join(REPO, "examples", "jobs", "streaming_aggregation.json")
 ASYNC_HETERO_JOB = os.path.join(REPO, "examples", "jobs", "async_hetero_pipeline.json")
-#: C1's bound on the async paths' trained weights (:func:`c1_counts`): the
-#: share of elements that may exceed one blockwise8 step by a 4-bit code
-#: gap (a code that flipped on a hop), and the share that may exceed that
-#: by AdamW's sign-flip term
-NF4_FLIP_SHARE = 1e-4
-SIGN_FLIP_SHARE = 1e-5
+#: the fifth path: the LoRA plane, examples/jobs/lora_federation.json at
+#: full-width llama3.2-1b, its 4 clients and 2 rounds uncut
+LORA_JOB = os.path.join(REPO, "examples", "jobs", "lora_federation.json")
+#: the SVD drivers ``--svd-drivers`` times on the path's largest
+#: decomposed item (blocks.mlp.w_up / w_gate with their 16 layers collapsed)
+SVD_SHAPE = (32768, 8192)
+SVD_DRIVERS = ("gesvd", "gesvdj")
+#: check (a): ||x - ab||^2 against the discarded singular mass, relative
+#: to the kept mass
+LORA_FIDELITY_TOL = 1e-3
+#: check (a): each kept sigma_i against the float64 eigensolve's, in units
+#: of eps sqrt(m n) sigma_1 (eps = 2^-24): Weyl's bound for an SVD whose
+#: backward error is eps sqrt(m n) ||x||_2, the usual size of Householder
+#: bidiagonalisation's (its worst case grows like m n). The card's gesvd
+#: read 2.67 units of the smaller eps sqrt(max(m, n)) sigma_1 at (32768, 512)
+LORA_SIGMA_TOL = 1.0
+#: check (c): the full-width item that topk and bf16 run on, card vs CPU
+TOPK_BF16_ITEM = "blocks.attn.wq"
+TOPK_FRACTION = 0.01
 #: secure aggregation card vs CPU: full-width qwen1.5-0.5b's stacked MLP
 #: gate (69,206,016 values); with the embedding item as well, the host's
 #: numpy mask draws made this check take about a minute
@@ -793,57 +824,6 @@ def run_path(torch, dev, label: str, spec: dict, want: dict[str, int]) -> dict:
     return report
 
 
-def fixed_train_fn(init: dict, index: int, scale: float):
-    """A client update that is a seeded function of (client, round) only."""
-    def train_fn(_params, rnd):
-        rng = np.random.default_rng((index, rnd))
-        return ({k: v + rng.standard_normal(v.shape).astype(np.float32) * np.float32(scale)
-                 for k, v in init.items()}, 3 + 5 * index, {})
-    return train_fn
-
-
-def block_step(torch, want, got, block: int, step: float):
-    """Per element: ``step`` times the larger absmax of its ``block``-element
-    block in ``want`` or ``got`` (the flat wire layout)."""
-    flat_w, flat_g = want.reshape(-1).abs(), got.reshape(-1).abs()
-    pad = -flat_w.numel() % block
-    am = torch.maximum(torch.nn.functional.pad(flat_w, (0, pad)),
-                       torch.nn.functional.pad(flat_g, (0, pad)))
-    return am.reshape(-1, block).amax(1).repeat_interleave(block)[:flat_w.numel()] * step
-
-
-def c1_counts(torch, want: dict, got: dict, sign_flips: float) -> dict:
-    """Trained weights ``got`` against ``want`` under C1's bound for the
-    async paths. Each element must lie within one blockwise8 step of its
-    block + 1e-5 relative (the step bound); at most a
-    :data:`NF4_FLIP_SHARE` of them (a 4-bit code that flipped on a hop)
-    one nf4 code gap of its 64-block more (the gap bound); at most a
-    :data:`SIGN_FLIP_SHARE` AdamW's ``sign_flips`` more, and none beyond
-    that. Returns the element count, the counts beyond the step and the
-    gap bounds, whether all of it holds, and the worst ratio to each."""
-    from repro_torch.kernels.ref import BLOCK4, BLOCK8, NF4_CODE
-
-    gap = float(np.diff(np.sort(NF4_CODE)).max())
-    n = beyond_step = beyond_gap = 0
-    within_all = True
-    worst_step = worst_gap = 0.0
-    for name, w in want.items():
-        g = got[name]
-        step = block_step(torch, w, g, BLOCK8, 1 / 127) + 1e-5 * w.abs().reshape(-1)
-        gap_bound = step + block_step(torch, w, g, BLOCK4, gap)
-        err = (g - w).abs().reshape(-1)
-        n += err.numel()
-        beyond_step += int((err > step).sum())
-        beyond_gap += int((err > gap_bound).sum())
-        within_all &= bool((err <= gap_bound + sign_flips).all())
-        worst_step = max(worst_step, float((err / step).nan_to_num(posinf=math.inf).max()))
-        worst_gap = max(worst_gap, float((err / gap_bound).nan_to_num(posinf=math.inf).max()))
-    holds = (within_all and beyond_step <= NF4_FLIP_SHARE * n
-             and beyond_gap <= SIGN_FLIP_SHARE * n)
-    return {"elements": n, "beyond_step": beyond_step, "beyond_gap": beyond_gap,
-            "holds": holds, "worst_of_step": worst_step, "worst_of_gap": worst_gap}
-
-
 def check_against_cpu(torch, dev) -> dict:
     """Smoke width, card vs CPU from identical weights, blockwise8 path:
     fixed updates must give the same bits; a trained round must agree
@@ -851,6 +831,7 @@ def check_against_cpu(torch, dev) -> dict:
     tests/test_torch_slice.py for why)."""
     from repro_torch.fl.job import build_job, initial_weights, run_job
     from repro_torch.kernels.ref import BLOCK8
+    from repro_torch.testing import block_step, fixed_train_fn
 
     spec = {**SPEC, "smoke": True, "rounds": 1}
     init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
@@ -870,7 +851,7 @@ def check_against_cpu(torch, dev) -> dict:
     worst = 0.0
     for name, want in cpu["final_weights"].items():
         got = gpu["final_weights"][name].cpu()
-        step = block_step(torch, want, got, BLOCK8, 1 / 127)
+        step = block_step(want, got, BLOCK8, 1 / 127)
         err = (got - want).abs().reshape(-1)
         if bool((err > step + 1e-5 * want.abs().reshape(-1)).any()):
             fail(f"trained round on the card is more than one quantization step from "
@@ -900,6 +881,7 @@ def check_nf4_against_cpu(torch, dev) -> dict:
     1e-4 relative."""
     from repro_torch.fl.job import build_job, initial_weights, normalize_spec
     from repro_torch.kernels.ref import BLOCK4, NF4_CODE
+    from repro_torch.testing import block_step, fixed_train_fn
 
     with open(WIRE_PIPELINE_JOB) as fh:
         spec = normalize_spec(json.load(fh))
@@ -938,7 +920,7 @@ def check_nf4_against_cpu(torch, dev) -> dict:
         worst_gaps = 0.0
         for name, want in want_r.items():
             got = got_r[name]
-            step = block_step(torch, want, got, BLOCK4, gap)
+            step = block_step(want, got, BLOCK4, gap)
             err = (got - want).abs().reshape(-1)
             rel = 1e-5 * want.abs().reshape(-1)
             cap = step + rel if rnd == 0 else step + sign_flips + rel
@@ -1094,6 +1076,7 @@ def check_legacy_against_cpu(torch, dev) -> dict:
     command-line entry point runs the spec file unchanged on the card."""
     from repro_torch.fl.job import build_job, initial_weights, run_job
     from repro_torch.kernels.ref import BLOCK8
+    from repro_torch.testing import block_step, fixed_train_fn
 
     with open(LEGACY_JOB) as fh:
         spec = json.load(fh)
@@ -1124,7 +1107,7 @@ def check_legacy_against_cpu(torch, dev) -> dict:
     worst = 0.0
     for name, want in cpu["final_weights"].items():
         got = gpu["final_weights"][name].cpu()
-        step = block_step(torch, want, got, BLOCK8, 1 / 127)
+        step = block_step(want, got, BLOCK8, 1 / 127)
         err = (got - want).abs().reshape(-1)
         if bool((err > step + 1e-5 * want.abs().reshape(-1)).any()):
             fail(f"legacy trained round on the card is more than one quantization step "
@@ -1166,45 +1149,6 @@ def async_spec(path: str = ASYNC_JOB) -> dict:
     return {**spec, "smoke": False, "pipeline": pipeline}
 
 
-def async_formats(spec: dict, hop: str, names: list[str]) -> dict[str, str | None]:
-    """Each item's format on one hop (``task_data`` or ``task_result``),
-    read from the spec's own ``"quantize:..."`` string, not from the
-    stage that runs it: ``pattern=fmt`` entries are rules, the first
-    pattern found in the item's name decides and ``keep`` keeps the item;
-    the entry without ``=`` is the default. Every item of these models is
-    a float tensor and the stage quantizes any size, so no item is
-    skipped for its dtype or size. A hop without such a stage: None."""
-    fmts: dict[str, str | None] = dict.fromkeys(names)
-    for stage in spec["pipeline"].get(f"{hop}_out", []):
-        if not (isinstance(stage, str) and stage.startswith("quantize:")):
-            continue
-        rules, default = [], None
-        for entry in stage.split(":", 1)[1].split(","):
-            pattern, is_rule, fmt = entry.partition("=")
-            if is_rule:
-                rules.append((pattern, None if fmt in ("", "keep") else fmt))
-            else:
-                default = pattern
-        fmts = {name: next((f for p, f in rules if p in name), default) for name in names}
-    return fmts
-
-
-def async_launches(spec: dict, names: list[str]) -> dict[str, int]:
-    """The launches the async streaming path implies, from the spec's
-    formats (:func:`async_formats`): the uplink is encoded twice a
-    dispatch (the byte-pricing pass and the fold transfer), one fused B1
-    group each; one fused B4 group a downlink; one B5 a downlinked nf4
-    item on the client; one B2 an uplinked blockwise8 item in the fold;
-    no B3 (FedBuff folds dense values)."""
-    tasks = spec["runtime"]["total_tasks"]
-    down = list(async_formats(spec, "task_data", names).values())
-    up = list(async_formats(spec, "task_result", names).values())
-    return {"quantize_blockwise8": 2 * tasks * ("blockwise8" in up),
-            "quantize_4bit": tasks * ("nf4" in down),
-            "dequantize_4bit": tasks * down.count("nf4"),
-            "dequantize_blockwise8": tasks * up.count("blockwise8")}
-
-
 def check_async_kernels(torch, dev, spec: dict) -> dict:
     """B1, B2, B4 and B5 against their plain versions on the card, bitwise,
     at the shapes the full-width async path gives them, from the spec's
@@ -1222,6 +1166,7 @@ def check_async_kernels(torch, dev, spec: dict) -> dict:
         quantize_blockwise8,
     )
     from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit
+    from repro_torch.testing import async_formats
 
     weights = initial_weights(spec, device=dev)
     names = list(weights)
@@ -1321,13 +1266,15 @@ def run_async(torch, dev) -> dict:
     downlink with its per-layer rules, blockwise8 + crc32 uplink folded
     at each completion instant; ``zlib`` dropped. The launch counters are
     zeroed just before the run and read just after, and must equal what
-    the path implies (:func:`async_launches`); the runtime must report 6
-    dispatches and completions, 3 model updates and no failure; every
+    the path implies (:func:`~repro_torch.testing.async_launches`); the
+    runtime must report 6 dispatches and completions, 3 model updates and
+    no failure; every
     tensor must move and stay finite. Before the run, the path's kernels
     are held against their plain versions at its own shapes
     (:func:`check_async_kernels`)."""
     from repro_torch.fl.job import build_job
     from repro_torch.kernels import ops
+    from repro_torch.testing import async_launches
 
     spec = async_spec()
     kernels = check_async_kernels(torch, dev, spec)
@@ -1408,11 +1355,12 @@ def check_async_against_cpu(torch, dev) -> dict:
     be identical. Trained: the event order, counts and staleness must be
     identical, times and wire bytes within 1e-4 relative (the loss in each
     header and zlib's input differ in the last bits), and the weights
-    within C1's bound of the CPU's (:func:`c1_counts`, which
+    within C1's bound of the CPU's (:func:`~repro_torch.testing.c1_counts`, which
     tests/test_torch_slice_async.py holds the reference to as well). Then
     ``python -m repro_torch.fl.job`` runs ``streaming_aggregation.json``
     unchanged on the card."""
     from repro_torch.fl.job import build_job, initial_weights, normalize_spec
+    from repro_torch.testing import c1_counts, fixed_train_fn
 
     out = {}
     for path in (ASYNC_JOB, ASYNC_HETERO_JOB):
@@ -1454,7 +1402,7 @@ def check_async_against_cpu(torch, dev) -> dict:
         if t_rel > 1e-4 or b_rel > 1e-4:
             fail(f"{label} trained: times ({t_rel:.3g}) or uplink bytes ({b_rel:.3g}) "
                  "differ by more than 1e-4 relative")
-        c1 = c1_counts(torch, want[4], got[4],
+        c1 = c1_counts(want[4], got[4],
                        2 * normalize_spec(spec)["lr"] * spec["local_steps"])
         print(f"{label}, smoke width, card vs CPU: fixed updates identical (timeline of "
               f"{len(want[0])} events, sim_time_s {runs[(True, 'cpu')][2]:.6f}, weights "
@@ -1525,6 +1473,463 @@ def check_secure_agg_against_cpu(torch, dev) -> dict:
     print(f"secure-agg, {len(clients)} clients x {n} values, card vs CPU: masked grids and "
           "unmasked means bitwise equal; masks cancel")
     return {"values": n, "clients": len(clients)}
+
+
+def lora_spec() -> dict:
+    """``examples/jobs/lora_federation.json`` at full width."""
+    with open(LORA_JOB) as fh:
+        return {**json.load(fh), "smoke": False}
+
+
+def time_svd_drivers(torch, dev) -> dict:
+    """With ``--svd-drivers`` only: each cuSOLVER SVD driver of
+    :data:`SVD_DRIVERS` once on the path's largest decomposed item,
+    :data:`SVD_SHAPE` (``blocks.mlp.w_up`` / ``w_gate`` with their 16
+    layers collapsed), the measurement that chose ``ops.SVD_DRIVER`` (the
+    path never runs ``gesvdj``), on seeded weight-like values: host clock around
+    work ending in a synchronise, and the truncation's fidelity,
+    ``||x - U_8 S_8 V_8||_F^2`` against the discarded ``sum sigma_i^2``
+    (i >= 8), relative to ``||x||_F^2``. (That ``ops.SVD_DRIVER`` gives
+    the same bits twice is check (a), :func:`check_lora_items`.)"""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.randn(SVD_SHAPE, generator=gen, device=dev) * 0.02
+    x64 = x.double()
+    total = float((x64 ** 2).sum())
+    out = {}
+    for driver in SVD_DRIVERS:
+        release(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, s, vt = torch.linalg.svd(x, full_matrices=False, driver=driver)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        resid = (x64 - (u[:, :8].double() * s[:8].double()) @ vt[:8].double()).norm() ** 2
+        fidelity = float((resid - (s[8:].double() ** 2).sum()).abs()) / total
+        out[driver] = {"ms": ms, "fidelity_rel": fidelity, "sigma_top8": s[:8].tolist()}
+        print(f"svd {driver} {SVD_SHAPE}: {ms:.1f} ms, fidelity {fidelity:.2e} of ||x||^2, "
+              f"sigma_1..8 {[round(v, 5) for v in s[:8].tolist()]}")
+        del u, s, vt, resid
+    top = [torch.tensor(out[d]["sigma_top8"], dtype=torch.float64) for d in SVD_DRIVERS]
+    out["sigma_top8_rel_diff"] = float(((top[0] - top[1]).abs() / top[0]).max())
+    print(f"svd drivers: top-8 singular values agree within {out['sigma_top8_rel_diff']:.2e}; "
+          f"the path uses {ops.SVD_DRIVER}")
+    del x, x64
+    release(torch)
+    return out
+
+
+def check_lora_items(torch, dev) -> dict:
+    """Check (a) on every full-width item the ``lora`` stage decomposes,
+    from the seeded full-width weights: the whole uplink stack encodes
+    the same payload twice to the same wire bytes; each factor pair is
+    canonical (the first largest-|b| entry of each row is positive); the
+    kept ``sigma_i`` (the norms of ``a``'s columns: ``a = U_r S_r`` up to
+    signs) are the item's top ``r`` singular values, held against the
+    square roots of the top eigenvalues of its float64 Gram matrix
+    (``torch.linalg.eigvalsh``, no SVD) within :data:`LORA_SIGMA_TOL`
+    units of ``eps sqrt(m n) sigma_1``; and ``||x - a b||_F^2``
+    equals ``||x||_F^2 - sum_i ||a_i||^2`` within
+    :data:`LORA_FIDELITY_TOL` of the kept mass. The last two together
+    make ``||x - a b||_F^2`` the discarded mass of the top ``r``
+    singular values, the Eckart–Young optimum, to the SVD's own
+    accuracy; the float64 gap ``sigma_r - sigma_{r+1}`` in the same units
+    says whether that accuracy tells the ``r``-th direction from the
+    ``r+1``-th (below one unit no fp32 SVD can: random weights have
+    nearly equal top singular values).
+    The first encode is traced: its ``kernel.lora_decompose`` spans
+    (device-synchronised) are the SVD time of each item (check d)."""
+    from repro_torch.core.messages import Message, MessageKind
+    from repro_torch.core.pipeline import build_pipeline
+    from repro_torch.core.serialization import join_views
+    from repro_torch.fl.job import initial_weights
+    from repro_torch.obs import Tracer
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.peft.lowrank import LowRankDelta
+    from repro_torch.testing import lora_factor_bytes
+    from repro_torch.utils.trees import as_tensor
+
+    release(torch)
+    spec = lora_spec()
+    state = initial_weights(spec, device=dev)
+    stack = spec["pipeline"]["task_result_out"]
+
+    def encode():
+        p = build_pipeline(stack, decode_values=False, device=dev)
+        msg, ctx = p.begin_encode(Message(MessageKind.TASK_RESULT, dict(state),
+                                          {"client": "site-0", "round": 0, "num_samples": 4}))
+        return p, [(n, join_views(v)) for n, v in p.iter_encode_views(msg, ctx)]
+
+    tracer = Tracer(sync=torch.cuda.synchronize)
+    t0 = time.perf_counter()
+    with obs_trace.activate(tracer):
+        p, first = encode()
+    encode_s = time.perf_counter() - t0
+    svd_ms = {e["args"]["item"]: e["dur"] / 1e3 for e in tracer.chrome_trace()["traceEvents"]
+              if e.get("name") == "kernel.lora_decompose"}
+    second = encode()[1]
+    if first != second:
+        differ = [n for (n, a), (_, b) in zip(first, second) if a != b]
+        fail(f"lora: encoding the same payload twice gave different wire bytes for {differ}")
+    dec = p.decoder()
+    items = {}
+    for name, blob in first:
+        _, value, _ = dec.decode_item(blob)
+        if isinstance(value, LowRankDelta):
+            x = state[name].reshape(-1, state[name].shape[-1]).double()
+            a, b = as_tensor(value.a, dev), as_tensor(value.b, dev)
+            r = b.shape[0]
+            rows = torch.arange(r, device=dev)
+            canonical = bool((b[rows, b.abs().argmax(dim=1)] > 0).all())
+            kept = float((a.double() ** 2).sum())
+            resid = float(((x - a.double() @ b.double()) ** 2).sum())
+            total = float((x ** 2).sum())
+            # a zero item (the norms start at zero) keeps and discards nothing
+            err = abs(resid - (total - kept)) / kept if kept else abs(resid - total)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gram = x.T @ x if x.shape[1] <= x.shape[0] else x @ x.T
+            sigma64 = torch.linalg.eigvalsh(gram).flip(0)[:r + 1].clamp_min(0).sqrt()
+            torch.cuda.synchronize()
+            eig_ms = (time.perf_counter() - t0) * 1e3
+            unit = max(2.0 ** -24 * math.sqrt(x.numel()) * float(sigma64[0]), 1e-300)
+            sigma_err = float((a.double().norm(dim=0) - sigma64[:r]).abs().max()) / unit
+            gap = float(sigma64[r - 1] - sigma64[r]) / unit
+            items[name] = {"shape": list(x.shape), "svd_ms": svd_ms[name], "canonical": canonical,
+                           "fidelity_rel_of_kept": err, "kept_share": kept / max(total, 1e-300),
+                           "sigma_err_units": sigma_err, "sigma_gap_units": gap,
+                           "sigma64_top": sigma64.tolist(), "eigvalsh_ms": eig_ms}
+            print(f"lora (a) {name} {tuple(x.shape)}: svd {svd_ms[name]:.1f} ms, canonical "
+                  f"{canonical}, ||x-ab||^2 vs discarded mass {err:.2e} of the kept "
+                  f"{kept:.4g} ({100 * kept / max(total, 1e-300):.4f} % of ||x||^2); kept "
+                  f"sigma vs float64 Gram eigvalsh {sigma_err:.3g} units of eps sqrt(mn) "
+                  f"sigma_1 (sigma_{r} - sigma_{r + 1} = {gap:.3g} units; eigvalsh "
+                  f"{eig_ms:.0f} ms)")
+            if not canonical or err > LORA_FIDELITY_TOL or sigma_err > LORA_SIGMA_TOL:
+                fail(f"lora (a): {name}: canonical {canonical}, fidelity {err:.3e}, kept "
+                     f"sigma {sigma_err:.3g} units from the float64 eigensolve's")
+            del x, a, b, gram, sigma64
+    if set(items) != set(lora_factor_bytes(spec, {k: tuple(v.shape)
+                                                  for k, v in state.items()})[1]):
+        fail(f"lora (a): decomposed {sorted(items)}")
+    print(f"lora (a): {len(items)} items decomposed, the uplink encoded twice to the same "
+          f"{sum(len(b) for _, b in first)} bytes; first encode {encode_s:.2f} s, SVDs "
+          f"{sum(svd_ms.values()) / 1e3:.2f} s")
+    del state, first, second
+    release(torch)
+    return {"items": items, "encode_s": encode_s, "svd_s": sum(svd_ms.values()) / 1e3}
+
+
+def check_topk_bf16(torch, dev) -> dict:
+    """Check (c) on the full-width item :data:`TOPK_BF16_ITEM` (seeded
+    weights, with NaNs of both signs, ±inf, ±0 and repeated magnitudes
+    written in at seeded places): ``topk`` (stable sort on the card)
+    against the reference's numpy selection on the host, and ``bf16``
+    (bit arithmetic on the card) against the same on the CPU — the
+    SparseTensor, the bf16 words, the widened values and each stage's
+    envelope bitwise. Also what torch's own card cast gives for NaNs."""
+    from repro_torch.core import quantization as q
+    from repro_torch.core.messages import Message, MessageKind
+    from repro_torch.core.pipeline import build_pipeline, registered_stages
+    from repro_torch.core.serialization import join_views
+    from repro_torch.core.sparse import topk_sparsify
+    from repro_torch.fl.job import initial_weights
+
+    release(torch)
+    x = initial_weights(lora_spec(), device=dev)[TOPK_BF16_ITEM].contiguous()
+    flat = x.view(-1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    pos = torch.randint(0, flat.numel(), (4096,), generator=gen, device=dev)
+    specials = np.asarray([0x7FC00000, 0xFFC12345, 0x7F800001, 0x7F800000, 0xFF800000,
+                           0x00000000, 0x80000000, 0x00000001], np.uint32).view(np.float32)
+    flat[pos[:8]] = torch.from_numpy(specials).to(dev)
+    # one magnitude, both signs, at the other places: ties the sort must keep in index order
+    flat[pos[8:]] = torch.where(pos[8:] % 2 == 0, 1.0, -1.0) * flat[pos[8]].abs()
+    host = x.cpu()
+    out = {"item": TOPK_BF16_ITEM, "shape": list(x.shape),
+           "zstd_registered": "zstd" in registered_stages()}
+    print(f"zstd stage registered on this machine: {out['zstd_registered']}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = topk_sparsify(x, TOPK_FRACTION)
+    out["topk_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = topk_sparsify(host.numpy(), TOPK_FRACTION)
+    out["topk_host_numpy_s"] = time.perf_counter() - t0
+    topk_same = (card.indices.tobytes() == plain.indices.tobytes()
+                 and card.values.tobytes() == plain.values.tobytes())
+
+    narrow = q.narrow_bf16(x)
+    narrow_cpu = q.narrow_bf16(host)
+    bf16_same = torch.equal(narrow.view(torch.int16).cpu(), narrow_cpu.view(torch.int16))
+    widen_same = torch.equal(bits(torch, q.widen_bf16(narrow).cpu()),
+                             bits(torch, q.widen_bf16(narrow_cpu)))
+    own = x.to(torch.bfloat16).view(torch.int16)
+    differ = own != narrow.view(torch.int16)
+    nan_words = sorted({int(w) & 0xFFFF for w in own[torch.isnan(x)].tolist()})
+    out["torch_card_cast"] = {"words_differing": int(differ.sum()),
+                              "of_them_nan": int((differ & torch.isnan(x)).sum()),
+                              "nan_words": [f"0x{w:04x}" for w in nan_words]}
+
+    envelopes_same = {}
+    for stack in ([f"topk:{TOPK_FRACTION}", "crc32"], ["quantize:bf16", "crc32"]):
+        blobs = []
+        for d, value in ((dev, x), ("cpu", host)):
+            p = build_pipeline(stack, device=d)
+            msg, ctx = p.begin_encode(Message(MessageKind.TASK_RESULT,
+                                              {TOPK_BF16_ITEM: value}, {"round": 0}))
+            blobs.append([join_views(v) for _n, v in p.iter_encode_views(msg, ctx)])
+        envelopes_same[stack[0]] = blobs[0] == blobs[1]
+    out.update(topk_bitwise=topk_same, bf16_bitwise=bf16_same, widen_bitwise=widen_same,
+               envelopes_bitwise=envelopes_same, topk_k=int(card.values.size))
+    print(f"(c) {TOPK_BF16_ITEM} {tuple(x.shape)}: topk:{TOPK_FRACTION} card vs host numpy "
+          f"bitwise {topk_same} (k {card.values.size}; card {out['topk_card_s']:.3f} s, "
+          f"numpy {out['topk_host_numpy_s']:.3f} s); bf16 card vs CPU bitwise {bf16_same}, "
+          f"widened {widen_same}; envelopes {envelopes_same}; torch's own card cast differs "
+          f"in {out['torch_card_cast']['words_differing']} words "
+          f"({out['torch_card_cast']['of_them_nan']} NaN), NaN words {nan_words}")
+    if not (topk_same and bf16_same and widen_same and all(envelopes_same.values())):
+        fail(f"(c) topk / bf16 card vs CPU: {out}")
+    del x, host, card, narrow, own
+    release(torch)
+    return out
+
+
+def lora_phases(events: list[dict]) -> dict:
+    """Per-phase wall seconds of the lora round from its device-synchronised
+    spans, and the SVD and merge time of each item (check d)."""
+    spans = [e for e in events if e.get("ph") == "X"]
+
+    def total(pred):
+        return sum(e["dur"] for e in spans if pred(e)) / 1e6
+
+    def per_item(name):
+        out: dict[str, list[float]] = {}
+        for e in spans:
+            if e["name"] == name:
+                out.setdefault(e["args"]["item"], []).append(e["dur"] / 1e3)
+        return {k: {"ms_mean": float(np.mean(v)), "calls": len(v)} for k, v in out.items()}
+
+    phases = {
+        "downlink_transmit_s": total(lambda e: e["name"] == "wire.transmit"
+                                     and e["args"]["kind"] == "task_data"),
+        "uplink_transmit_s": total(lambda e: e["name"] == "wire.transmit"
+                                   and e["args"]["kind"] == "task_result"),
+        "local_steps_s": total(lambda e: e["name"] == "client.train"),
+        "svd_s": total(lambda e: e["name"] == "kernel.lora_decompose"),
+        "uplink_nf4_encode_s": total(lambda e: e["name"] == "stage.encode.quantize"),
+        "merge_s": total(lambda e: e["name"] == "kernel.lora_merge"),
+        "finish_s": total(lambda e: e["name"] == "agg.finish"),
+    }
+    uplinks = [e["args"]["wire_bytes"] for e in spans
+               if e["name"] == "wire.transmit" and e["args"]["kind"] == "task_result"]
+    return {"phases": phases, "svd_ms": per_item("kernel.lora_decompose"),
+            "merge_ms": per_item("kernel.lora_merge"), "uplink_wire_bytes": uplinks}
+
+
+def check_lora_kernels(torch, dev, spec: dict, inputs: list) -> dict:
+    """B4 and B5 against their plain versions on the card, bitwise, at the
+    lora path's own inputs: each ``(name, value)`` the uplink's
+    ``quantize`` stage took (the item the ``lora`` stage left, as each
+    client sent it), laid out as the stage lays it out, B4's codes and
+    absmax against the plain quantize, then B5 on those codes (what the
+    server's ``lora-fedavg`` runs) against the plain dequantize."""
+    from repro_torch.core.pipeline import build_stage
+    from repro_torch.core.quantization import pack_group
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant_nf4 import dequantize_4bit, quantize_4bit
+
+    fmt = next(s.fmt for s in map(build_stage, spec["pipeline"]["task_result_out"])
+               if s.name == "quantize")
+    for i, (name, value) in enumerate(inputs):
+        x2d, _ = pack_group({name: value}, [name], dev, ref.BLOCK4)
+        p, am = quantize_4bit(x2d, fmt)
+        p_p, am_p = ref.quantize_4bit(x2d, fmt)
+        if not (torch.equal(p, p_p) and same_bits(torch, am, am_p)):
+            fail(f"lora: {fmt} quantize kernel disagrees with its plain version on "
+                 f"{name} {tuple(value.shape)}, input {i}")
+        if not same_bits(torch, dequantize_4bit(p, am, fmt), ref.dequantize_4bit(p, am, fmt)):
+            fail(f"lora: {fmt} dequantize kernel disagrees with its plain version on "
+                 f"{name} {tuple(value.shape)}, input {i}")
+    shapes = sorted({(n, tuple(v.shape)) for n, v in inputs})
+    print(f"lora kernels agree bitwise with their plain versions on the path's own "
+          f"{len(inputs)} inputs: {fmt} quantize and dequantize at {shapes}")
+    return {"inputs": len(inputs), "items": [list(x) for x in shapes], "fmt": fmt}
+
+
+def run_lora(torch, dev) -> dict:
+    """The lora path: ``lora_federation.json`` at full-width llama3.2-1b
+    (:func:`lora_spec`), the counters zeroed just before and read just
+    after; B4 and B5 as :func:`~repro_torch.testing.lora_launches`
+    implies and nothing else, then each held against its plain version on
+    the values B4 took (:func:`check_lora_kernels`: the initial one and
+    every client's); every uplink carries the factor bytes the shapes
+    imply (:func:`~repro_torch.testing.lora_factor_bytes`) plus the
+    leftover nf4 items and framing; finite losses and weights; SVD and
+    merge times per item (check d)."""
+    from repro_torch.fl.job import build_job
+    from repro_torch.kernels import ops
+    from repro_torch.testing import lora_factor_bytes, lora_launches
+
+    spec = lora_spec()
+    uplinks = spec["clients"] * spec["rounds"]
+    torch.cuda.synchronize()
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    job = build_job({**spec, "trace": True}, device=dev)
+    shapes = {k: tuple(v.shape) for k, v in job.init_weights.items()}
+    want = lora_launches(spec, shapes)
+    factor_bytes, factored = lora_factor_bytes(spec, shapes)
+    # keep what each uplink's quantize stage takes: the items lora leaves
+    quantized = [(n, job.init_weights[n].clone()) for n in shapes if n not in factored]
+    hops = {id(p.pipelines["task_result"]): p.pipelines["task_result"]
+            for p in job.sim.proxies}
+    for pipeline in hops.values():
+        def record(name, value, ctx, _encode=pipeline.encode_wire_item_views):
+            if name not in factored:
+                quantized.append((name, torch.as_tensor(value, device=dev).clone()))
+            return _encode(name, value, ctx)
+        pipeline.encode_wire_item_views = record
+    ops.reset_launch_counts()
+    result = job.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {name: want.get(name, 0) for name in launches}
+    print(f"lora launches: {launches} (expected {want})")
+    if launches != want:
+        fail(f"kernel launches on the lora path {launches} != {want}")
+    if len(quantized) != len(shapes) - len(factored) + want["quantize_4bit"]:
+        fail(f"lora: {len(quantized)} quantize inputs kept for {want['quantize_4bit']} "
+             "launches")
+    kernels = check_lora_kernels(torch, dev, spec, quantized)
+    del quantized
+    losses = result["history"]
+    if len(losses) != uplinks or not all(math.isfinite(x) for x in losses):
+        fail(f"lora: losses {losses}")
+    if result["messages"] != 2 * uplinks:
+        fail(f"lora: {result['messages']} messages for {uplinks} uplinks")
+    final = result["final_weights"]
+    if set(final) != set(shapes) or not all(bool(torch.isfinite(w).all())
+                                                for w in final.values()):
+        fail("lora: final weights not finite or not the model's items")
+    trace = lora_phases(job.sim.tracer.chrome_trace()["traceEvents"])
+    up = trace["uplink_wire_bytes"]
+    # leftovers: nf4 payload and absmax of each item the stage skips
+    leftover = sum(math.ceil(math.prod(s) / 64) * (32 + 4) for n, s in shapes.items()
+                   if n not in factored)
+    if len(up) != uplinks or not all(factor_bytes + leftover < b < factor_bytes + leftover
+                                     + (64 << 10) for b in up):
+        fail(f"lora: uplink wire bytes {up}; factors {factor_bytes}, nf4 {leftover}")
+    if set(trace["svd_ms"]) != set(factored) or set(trace["merge_ms"]) != set(factored):
+        fail(f"lora: decomposed {sorted(trace['svd_ms'])}, merged {sorted(trace['merge_ms'])}")
+    n_params = sum(math.prod(s) for s in shapes.values())
+    report = {"spec": {k: spec[k] for k in ("clients", "rounds", "local_steps", "batch", "seq")},
+              "wall_s": wall, "losses": losses, "launches": launches,
+              "messages": result["messages"], "wire_bytes": result["wire_bytes"],
+              "factor_bytes_per_uplink": factor_bytes, "nf4_bytes_per_uplink": leftover,
+              "dense_fp32_bytes": 4 * n_params, "factored_items": factored,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "round_wall_s": [r["wall_s"] for r in result["round_log"]],
+              "kernels_vs_plain": kernels, **trace}
+    print(f"lora: {uplinks} uplinks of {up} bytes (factors {factor_bytes}, nf4 {leftover}; "
+          f"dense fp32 {4 * n_params}, {4 * n_params / up[0]:.1f} x), "
+          f"{result['wire_bytes']} wire bytes, losses {losses}, wall {wall:.3f} s")
+    print("lora phases (s): " + ", ".join(f"{k}={v:.4f}" for k, v in trace["phases"].items()))
+    for name in factored:
+        print(f"lora {name} {shapes[name]}: svd {trace['svd_ms'][name]['ms_mean']:.1f} ms "
+              f"(x{trace['svd_ms'][name]['calls']}), merge "
+              f"{trace['merge_ms'][name]['ms_mean']:.2f} ms (x{trace['merge_ms'][name]['calls']})")
+    print(f"lora max_memory_allocated: {report['max_memory_allocated_bytes']} bytes")
+    del job, result, final
+    release(torch)
+    return report
+
+
+def check_lora_against_cpu(torch, dev) -> dict:
+    """Check (b): ``lora_federation.json`` as it stands (smoke width) on
+    the card and on the CPU from the same weights, each client a fixed
+    seeded update — Gaussian (``fixed_train_fn``) and with a
+    well-separated rank-8 part (``separated_train_fn``, where the bound is
+    tight enough to catch a TF32 merge): the same messages; uplink
+    envelopes as :func:`~repro_torch.testing.lora_wire_compare` requires
+    (the nf4 items bitwise, the byte totals apart only by the crc32 digits
+    of the factor items); the nf4-folded global items bitwise and every
+    other within its :func:`~repro_torch.testing.lora_fixed_bounds`, each
+    item's reading and bound printed. Also ``python -m
+    repro_torch.fl.job`` on the spec file, on the card."""
+    from repro_torch.fl.job import build_job, initial_weights
+    from repro_torch.testing import (
+        envelope_log,
+        fixed_train_fn,
+        lora_factor_bytes,
+        lora_fixed_bounds,
+        lora_wire_compare,
+        relative_errors,
+        separated_train_fn,
+    )
+
+    with open(LORA_JOB) as fh:
+        spec = json.load(fh)
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+    factored = lora_factor_bytes(spec, {k: v.shape for k, v in init.items()})[1]
+    nf4_items = [n for n in init if n not in factored]
+    report = {}
+    for label, train_fn in (("gaussian", fixed_train_fn), ("separated", separated_train_fn)):
+        outs, logs = {}, {}
+        for d in ("cpu", dev):
+            job = build_job(spec, device=d, weights=init)
+            logs[str(d)] = envelope_log(job.sim.proxies[0].pipelines["task_result"])
+            for i, proxy in enumerate(job.sim.proxies):
+                proxy.executor.train_fn = train_fn(init, i, 0.05 * (i + 1))
+            outs[str(d)] = job.run()
+        want, got = outs["cpu"], outs[str(dev)]
+        cmp = lora_wire_compare(logs["cpu"], logs[str(dev)])
+        errs = relative_errors({k: v.cpu() for k, v in want["final_weights"].items()},
+                               {k: v.cpu() for k, v in got["final_weights"].items()})
+        nf4_bitwise = all(torch.equal(bits(torch, got["final_weights"][n].cpu()),
+                                      bits(torch, want["final_weights"][n])) for n in nf4_items)
+        bounds = lora_fixed_bounds(spec, init, {k: v.numpy() for k, v in
+                                                want["final_weights"].items()},
+                                   factored, train_fn)
+        share = {n: errs[n] / bounds[n] for n in factored}
+        ok = (cmp["holds"] and got["messages"] == want["messages"] and nf4_bitwise
+              and got["wire_bytes"] - want["wire_bytes"] == cmp["crc_digit_diff"]
+              and max(share.values()) <= 1)
+        worst = max(share, key=share.get)
+        print(f"lora (b) smoke card vs CPU, {label} fixed updates: {got['messages']} "
+              f"messages, wire {got['wire_bytes']} vs {want['wire_bytes']} bytes ({cmp}); "
+              f"nf4 items {nf4_items} bitwise {nf4_bitwise}; factored items within "
+              f"{max(errs[n] for n in factored):.2e} relative, at most {share[worst]:.3f} of "
+              f"their SVD bound ({worst})")
+        print(f"lora (b) {label} per item (card vs CPU relative error / bound): " + ", ".join(
+            f"{n} {errs[n]:.3e} / {bounds[n]:.3e}" for n in factored))
+        if not ok:
+            fail(f"lora (b) {label}: card vs CPU {cmp}, {errs}, bounds {bounds}")
+        report[label] = {"wire": cmp, "rel_errors": errs, "bounds": bounds,
+                         "nf4_bitwise": nf4_bitwise}
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.fl.job", LORA_JOB],
+                         capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
+    if cli.returncode != 0:
+        fail(f"python -m repro_torch.fl.job {os.path.relpath(LORA_JOB, REPO)} exited "
+             f"{cli.returncode}: {cli.stderr[-2000:]}")
+    summary = json.loads(cli.stdout)
+    if summary["messages"] != want["messages"] or not all(
+            math.isfinite(x) for x in summary["history"]):
+        fail(f"python -m repro_torch.fl.job lora_federation.json: {summary['messages']} "
+             f"messages, losses {summary['history']}")
+    print(f"python -m repro_torch.fl.job lora_federation.json on the card: "
+          f"{summary['messages']} messages, {summary['wire_bytes']} wire bytes, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {**report, "cli_messages": summary["messages"],
+            "cli_wire_bytes": summary["wire_bytes"]}
 
 
 def serialized_nbytes(payload: dict) -> int:
@@ -2496,6 +2901,8 @@ def run_fl_train(torch, n: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
+    ap.add_argument("--svd-drivers", action="store_true",
+                    help="also time both exact cuSOLVER SVD drivers on the largest lora item")
     args = ap.parse_args(argv)
 
     import torch
@@ -2550,6 +2957,11 @@ def main(argv=None) -> int:
     async_run = run_async(torch, dev)
     parity_async = check_async_against_cpu(torch, dev)
     secure_agg = check_secure_agg_against_cpu(torch, dev)
+    svd = time_svd_drivers(torch, dev) if args.svd_drivers else None
+    lora_items = check_lora_items(torch, dev)
+    lora = run_lora(torch, dev)
+    parity_lora = check_lora_against_cpu(torch, dev)
+    topk_bf16 = check_topk_bf16(torch, dev)
     table2_rows, bw8_message = table2(torch, dev)
     table3_rows = table3(torch, bw8_message)
     del bw8_message
@@ -2587,7 +2999,8 @@ def main(argv=None) -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[path]["launches"][name],
-         "launches_async": async_run["launches"][name], **rows[name]}
+         "launches_async": async_run["launches"][name],
+         "launches_lora": lora["launches"][name], **rows[name]}
         for name, (source, replaces, path) in KERNELS.items()
     ]
     if args.out:
@@ -2600,7 +3013,9 @@ def main(argv=None) -> int:
                        "cpu_parity": parity, "cpu_parity_nf4": parity_nf4,
                        "legacy": legacy, "cpu_parity_legacy": parity_legacy,
                        "async": async_run, "cpu_parity_async": parity_async,
-                       "secure_agg": secure_agg,
+                       "secure_agg": secure_agg, "svd_drivers": svd,
+                       "lora_items": lora_items, "lora": lora,
+                       "cpu_parity_lora": parity_lora, "topk_bf16": topk_bf16,
                        "table2": table2_rows, "table3": table3_rows,
                        "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
                        "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,

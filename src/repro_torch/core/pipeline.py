@@ -34,11 +34,12 @@ Device: a pipeline is bound to one torch device. Quantize encodes build
 their fused group there (the CUDA kernel on the card, the plain version
 on the CPU) and decodes land there; payload bytes on the wire are numpy.
 
-Ported stages: ``quantize`` (``blockwise8``, ``nf4``, ``fp4``, ``fp16``,
-``fp32``, with per-layer rules), ``ef-quantize``, ``adaptive``,
-``dp-noise``, ``secure-mask``, ``zlib``, ``crc32`` and ``delta``. The
-reference's other stage names (``zstd``, ``topk``, ``lora``) raise
-``NotImplementedError`` until ported (ROADMAP A4).
+Stages: ``quantize`` (``blockwise8``, ``nf4``, ``fp4``, ``fp16``,
+``bf16``, ``fp32``, with per-layer rules), ``ef-quantize``,
+``adaptive``, ``dp-noise``, ``secure-mask``, ``topk``, ``zlib``,
+``zstd`` (registered only when ``zstandard`` imports, as in the
+reference), ``crc32``, ``delta`` and ``lora``
+(:mod:`repro_torch.peft.stage`) — the reference's whole registry.
 
 Legacy interop: :func:`legacy_wire_pipelines` adapts the four-point
 ``Filter``/``FilterChain`` configuration (:mod:`repro_torch.core.filters`)
@@ -49,7 +50,9 @@ materialized (and metered) before streaming.
 from __future__ import annotations
 
 import json
+import math
 import struct
+import threading
 import zlib as _zlib
 from collections.abc import Callable, Iterator, Mapping
 from typing import Any, Optional, Union
@@ -77,19 +80,26 @@ from repro_torch.core.quantization import (
     quantize,
     quantize_batch,
 )
-from repro_torch.core.sparse import SparseTensor
+from repro_torch.core.sparse import SparseTensor, topk_sparsify
 from repro_torch.obs import trace as obs_trace
+from repro_torch.peft.lowrank import LowRankDelta
 from repro_torch.utils import mem
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import as_tensor
+
+try:  # optional dependency: the zstd stage registers only when importable
+    import zstandard as _zstd_mod
+except ImportError:  # pragma: no cover - environment-dependent
+    _zstd_mod = None
 
 _U32 = struct.Struct("<I")
 
 #: reserved item name carrying message kind + headers across the wire
 META_ITEM = "__meta__"
 
-#: stage names the reference registers that this package has not ported
-NOT_PORTED_STAGES = ("lora", "topk", "zstd")
+#: stage names the reference registers that this package has not ported:
+#: none (``registered_stages()`` is the reference's)
+NOT_PORTED_STAGES: tuple[str, ...] = ()
 
 
 class WireIntegrityError(ValueError):
@@ -236,11 +246,6 @@ def _lookup(name: str) -> type[Stage]:
     try:
         return _STAGES[name]
     except KeyError:
-        if name in NOT_PORTED_STAGES:
-            raise NotImplementedError(
-                f"stage {name!r} is not ported to repro_torch yet (ROADMAP A4); "
-                f"ported: {registered_stages()}"
-            ) from None
         raise ValueError(
             f"unknown stage {name!r}; registered: {registered_stages()}"
         ) from None
@@ -251,8 +256,9 @@ def _lookup(name: str) -> type[Stage]:
 # ---------------------------------------------------------------------------
 
 def _is_quantizable(value: Any, min_params: int) -> bool:
-    # already-wire-form containers pass through quantize untouched
-    if isinstance(value, (QuantizedTensor, SparseTensor)):
+    # already-wire-form containers pass through quantize untouched (their
+    # factor/index payloads still compress under the byte stages)
+    if isinstance(value, (QuantizedTensor, SparseTensor, LowRankDelta)):
         return False
     if isinstance(value, torch.Tensor):
         return bool(value.is_floating_point() and value.numel() >= min_params)
@@ -677,7 +683,7 @@ class Crc32Stage(Stage):
 
 
 def _is_plain_float(value: Any) -> bool:
-    if isinstance(value, (QuantizedTensor, SparseTensor)):
+    if isinstance(value, (QuantizedTensor, SparseTensor, LowRankDelta)):
         return False
     if isinstance(value, torch.Tensor):
         return value.is_floating_point()
@@ -790,6 +796,104 @@ class DeltaStage(Stage):
         else:
             self._prev_dec[key] = full.clone()
         return full
+
+
+@register_stage("topk")
+class TopKStage(Stage):
+    """Top-k magnitude sparsification — spec ``topk:0.05`` keeps the 5%
+    largest-|x| entries of each float tensor and ships them as a
+    :class:`~repro_torch.core.sparse.SparseTensor` (indices + values);
+    decode densifies with zeros elsewhere, on the pipeline's device.
+    Selection is a stable sort on the pipeline's device
+    (:func:`~repro_torch.core.sparse.topk_sparsify`): the reference's
+    entries, and on the card no host sort of the whole tensor. Small
+    tensors (< ``min_params``) pass through dense. The per-item
+    ``vmeta`` records kept/total counts.
+    """
+
+    def __init__(self, fraction: float = 0.1, min_params: int = 256) -> None:
+        if not 0.0 < fraction <= 1.0:
+            raise ValueError(f"topk fraction must be in (0, 1], got {fraction}")
+        self.fraction = fraction
+        self.min_params = min_params
+
+    @classmethod
+    def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> TopKStage:
+        if arg is not None:
+            kwargs.setdefault("fraction", float(arg))
+        return cls(**kwargs)
+
+    def encode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        if not _is_plain_float(value):
+            return value
+        if math.prod(np.shape(value)) < self.min_params:
+            return value
+        x = as_tensor(value, ctx.device)
+        sp = topk_sparsify(x, self.fraction)
+        ctx.vmeta["k"] = int(sp.values.size)
+        ctx.vmeta["n"] = x.numel()
+        return sp
+
+    def decode_item(self, name: str, value: Any, ctx: WireContext) -> Any:
+        return value.to_dense(ctx.device) if isinstance(value, SparseTensor) else value
+
+
+if _zstd_mod is not None:
+    @register_stage("zstd")
+    class ZstdStage(Stage):
+        """Byte-level Zstandard compression of each serialized item —
+        spec ``zstd`` or ``zstd:9``. Registered only when the
+        ``zstandard`` package imports (the registry never advertises a
+        stage the environment cannot decode). The envelope-declared
+        original length caps expansion, and any mismatch raises
+        :class:`WireIntegrityError`, as for :class:`ZlibStage`."""
+
+        def __init__(self, level: int = 3) -> None:
+            self.level = level
+            # zstd contexts are not thread-safe and cost setup time; one
+            # stage instance serves concurrent transfers, so each thread
+            # keeps one compressor and one decompressor
+            self._local = threading.local()
+
+        def _ctxs(self) -> tuple[Any, Any]:
+            if not hasattr(self._local, "c"):
+                self._local.c = _zstd_mod.ZstdCompressor(level=self.level)
+                self._local.d = _zstd_mod.ZstdDecompressor()
+            return self._local.c, self._local.d
+
+        @classmethod
+        def from_spec(cls, arg: Optional[str] = None, **kwargs: Any) -> ZstdStage:
+            if arg is not None:
+                kwargs.setdefault("level", int(arg))
+            return cls(**kwargs)
+
+        def encode_item_bytes(
+            self, name: str, blob: bytes, meta: dict[str, Any], ctx: WireContext
+        ) -> bytes:
+            meta["n"] = len(blob)
+            return self._ctxs()[0].compress(blob)
+
+        def decode_item_bytes(
+            self, name: str, blob: bytes, meta: Mapping[str, Any], ctx: WireContext
+        ) -> bytes:
+            n = meta.get("n")
+            if n is None:
+                return self._ctxs()[1].decompress(blob)
+            try:
+                out = self._ctxs()[1].decompress(blob, max_output_size=int(n))
+            except _zstd_mod.ZstdError as exc:
+                # an oversize (or otherwise malformed) stream is the same
+                # wire-integrity fault an undersize one is
+                raise WireIntegrityError(
+                    f"zstd stream for item {name!r} does not decompress to "
+                    f"its declared length {n}: {exc}"
+                ) from exc
+            if len(out) != int(n):
+                raise WireIntegrityError(
+                    f"zstd stream for item {name!r} does not match its "
+                    f"declared length {n} (got {len(out)} bytes)"
+                )
+            return out
 
 
 # ---------------------------------------------------------------------------
@@ -1282,3 +1386,12 @@ def build_pipeline(specs: Optional[list[StageSpec]], *, decode_values: bool = Tr
                    device: Any = None) -> WirePipeline:
     """Declarative constructor: ``["quantize:blockwise8", "crc32"]``."""
     return WirePipeline(list(specs or []), decode_values=decode_values, device=device)
+
+
+# The lora stage lives in repro_torch.peft (it carries model-plane
+# semantics) but registers wherever the pipeline registry exists: a live
+# federation fingerprints the whole registry at its handshake. Imported
+# at the bottom: the stage subclasses Stage and calls register_stage,
+# both defined above, and a top-level import would close the cycle
+# pipeline -> serialization -> peft -> pipeline.
+from repro_torch.peft import stage as _peft_stage  # noqa: E402,F401

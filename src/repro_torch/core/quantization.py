@@ -11,15 +11,18 @@ Formats (paper Table II):
 =============  ==========  =====================  ====================
 format         payload     meta                   fp32 size
 =============  ==========  =====================  ====================
-fp16           16-bit      —                      50.00 %
+fp16 / bf16    16-bit      —                      50.00 %
 blockwise8     int8        fp32 absmax / 4096     25.03 %
 fp4 / nf4      4-bit x2/B  fp32 absmax / 64       14.06 %
 =============  ==========  =====================  ====================
 
-``fp32`` passes through. ``bf16`` needs a numpy bfloat16 on the wire and
-raises ``NotImplementedError`` here until ported. Compute is delegated to
-:mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the card,
-their plain versions for tensors on the CPU.
+``fp32`` passes through. ``bf16`` payloads are torch ``bfloat16`` tensors
+(the wire names them ``"bfloat16"``, see
+:mod:`repro_torch.core.serialization`), cast by bit arithmetic
+(:func:`narrow_bf16`, :func:`widen_bf16`) so that every device gives the
+reference's bits. Compute is delegated to :mod:`repro_torch.kernels.ops`:
+the CUDA kernels for tensors on the card, their plain versions for
+tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.utils.trees import as_tensor, numpy_dtype, torch_dtype
 
 FORMATS = ("fp32", "fp16", "bf16", "blockwise8", "fp4", "nf4")
-PORTED_FORMATS = ("fp32", "fp16", "blockwise8", "fp4", "nf4")
+PORTED_FORMATS = FORMATS
 _BLOCK_OF = {"blockwise8": 4096, "fp4": 64, "nf4": 64}
 
 Array = Union[np.ndarray, torch.Tensor]
@@ -57,7 +60,7 @@ def check_format(fmt: str) -> None:
 class QuantizedTensor:
     """Wire format for one tensor: payload + quantization metadata."""
 
-    payload: Array                     # int8 / uint8 (packed 4-bit) / fp16 / fp32
+    payload: Array                     # int8 / uint8 (packed 4-bit) / fp16 / bf16 / fp32
     absmax: Optional[Array]            # per-block absmax (blocked formats)
     fmt: str
     orig_shape: tuple[int, ...]
@@ -97,6 +100,8 @@ def quantize(x: torch.Tensor, fmt: str) -> QuantizedTensor:
         return QuantizedTensor(x.to(torch.float32), None, fmt, shape, dtype)
     if fmt == "fp16":
         return QuantizedTensor(x.to(torch.float16), None, fmt, shape, dtype)
+    if fmt == "bf16":
+        return QuantizedTensor(narrow_bf16(x), None, fmt, shape, dtype)
     q, absmax = _quantize_blocked(x, fmt)
     return QuantizedTensor(q, absmax, fmt, shape, dtype)
 
@@ -120,6 +125,27 @@ def widen_fp16(h: torch.Tensor) -> torch.Tensor:
     return (out | sign).view(torch.float32)
 
 
+def narrow_bf16(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> bf16 by bit arithmetic on the ``int32`` view, the same bits
+    on any device: round to nearest, ties to even, subnormals kept (the
+    reference's ``astype`` does not flush here), overflow to ±inf, and
+    every NaN to ``sign | 0x7fc0`` — the reference's quiet NaN. Torch's
+    own CPU cast gives ``0xffff`` for a NaN."""
+    bits = x.to(torch.float32).view(torch.int32)
+    # the carry of round-half-to-even; no finite or infinite input
+    # overflows int32 here (the largest, 0x7f800000 + 0x8000, is < 2^31)
+    rounded = (bits + (0x7FFF + ((bits >> 16) & 1))) >> 16
+    nan = (bits >> 16) & -0x8000 | 0x7FC0          # sign | quiet NaN
+    out = torch.where(torch.isnan(x), nan, rounded)
+    return out.to(torch.int16).view(torch.bfloat16)
+
+
+def widen_bf16(h: torch.Tensor) -> torch.Tensor:
+    """bf16 -> fp32 as ``bits << 16``, the same on any device: NaN
+    payloads and subnormals kept, as every package's cast does."""
+    return (h.view(torch.int16).to(torch.int32) << 16).view(torch.float32)
+
+
 def dequantize(qt: QuantizedTensor, device: Any) -> torch.Tensor:
     """QuantizedTensor -> tensor of its original shape and dtype on ``device``."""
     check_format(qt.fmt)
@@ -128,6 +154,8 @@ def dequantize(qt: QuantizedTensor, device: Any) -> torch.Tensor:
         payload = as_tensor(qt.payload, device)
         if payload.dtype == torch.float16 and dtype != torch.float16:
             payload = widen_fp16(payload)
+        elif payload.dtype == torch.bfloat16 and dtype != torch.bfloat16:
+            payload = widen_bf16(payload)
         return payload.to(dtype).reshape(qt.orig_shape)
     payload, absmax = as_tensor(qt.payload, device), as_tensor(qt.absmax, device)
     if qt.fmt == "blockwise8":
@@ -234,9 +262,11 @@ def quantize_batch(
         check_format(fmt)
         if fmt in _BLOCK_OF:
             groups.setdefault(fmt, []).append(name)
-        else:  # fp32/fp16 casts: cheap per-tensor work
+        else:  # fp32/fp16/bf16 casts: cheap per-tensor work
             qt = quantize(as_tensor(value, device), fmt)
-            qt.payload = qt.payload.cpu().numpy()
+            qt.payload = qt.payload.cpu()
+            if fmt != "bf16":   # numpy has no bfloat16: bf16 stays a CPU tensor
+                qt.payload = qt.payload.numpy()
             out[name] = qt
     for fmt, names in groups.items():
         with obs_trace.span("kernel.quantize_batch", "kernel", fmt=fmt, items=len(names)):

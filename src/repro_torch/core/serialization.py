@@ -3,9 +3,12 @@
 Mirror of ``src/repro/core/serialization.py``: byte-for-byte the same
 wire format. Device tensors cross into numpy here (one device-to-host
 copy per unquantized tensor item); header dtype strings are numpy names
-(``"float32"``, ``"int8"``), as the reference writes them. The
-``lowrank`` item kind waits for the LoRA port (ROADMAP A10): decoding
-one raises ``NotImplementedError``.
+(``"float32"``, ``"int8"``), as the reference writes them, and
+``"bfloat16"`` (the name the reference's ``ml_dtypes`` gives it) for a
+bf16 tensor: numpy has no bfloat16, so the port carries those 2-byte
+words as ``int16`` and views them as a torch ``bfloat16`` tensor on
+decode. The ``lowrank`` item kind carries a
+:class:`~repro_torch.peft.lowrank.LowRankDelta` factor pair.
 
 NVFlare serializes messages with FOBS; we implement a small deterministic
 framed format so that message sizes are byte-exact and auditable:
@@ -44,11 +47,13 @@ from collections.abc import Iterator, Mapping, Sequence
 from typing import Any, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.quantization import QuantizedTensor
 from repro_torch.core.sparse import SparseTensor
+from repro_torch.peft.lowrank import LowRankDelta
 from repro_torch.utils import mem
-from repro_torch.utils.trees import as_numpy, numpy_dtype
+from repro_torch.utils.trees import as_numpy, as_tensor, numpy_dtype
 
 _U32 = struct.Struct("<I")
 
@@ -58,6 +63,28 @@ Views = list[Union[bytes, memoryview]]
 #: what streamers accept per item: pre-joined bytes or a view list
 ViewsLike = Union[bytes, bytearray, memoryview, Sequence[Union[bytes, memoryview]]]
 
+#: the wire's name for bfloat16 (the reference's ml_dtypes name)
+BF16 = "bfloat16"
+
+
+def wire_dtype(x: Any) -> str:
+    """The header dtype string of an array or tensor: its numpy name, or
+    ``"bfloat16"`` for a bf16 tensor."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return BF16
+    return str(numpy_dtype(x.dtype))
+
+
+def storage_dtype(name: str) -> np.dtype:
+    """The numpy dtype whose words carry a header dtype string's values."""
+    return np.dtype(np.int16) if name == BF16 else np.dtype(name)
+
+
+def _typed(arr: np.ndarray, name: str) -> Any:
+    """A decoded buffer as its header dtype: numpy, or for ``"bfloat16"``
+    a CPU bf16 tensor over the same words (no copy)."""
+    return as_tensor(arr, "cpu").view(torch.bfloat16) if name == BF16 else arr
+
 
 def _as_view(a: Any) -> Union[bytes, memoryview]:
     """Flat byte view over an array's buffer — zero-copy when the array
@@ -66,7 +93,10 @@ def _as_view(a: Any) -> Union[bytes, memoryview]:
     (that copy is recorded with the meter). The view is exported
     **read-only**: on a zero-copy hop (loopback) it may reach the
     receiving decoder directly, and nothing downstream may scribble on
-    the sender's tensors through it."""
+    the sender's tensors through it. A bf16 tensor exports its 2-byte
+    words."""
+    if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16:
+        a = a.view(torch.int16)
     src = as_numpy(a)
     arr = np.ascontiguousarray(src)
     if not np.shares_memory(arr, src):
@@ -195,6 +225,23 @@ def serialize_item_views(name: str, value: Any) -> Views:
         }
         hbytes = json.dumps(header, sort_keys=True).encode()
         return [_U32.pack(len(hbytes)) + hbytes, idx, vals]
+    if isinstance(value, LowRankDelta):
+        a = _as_view(value.a)
+        b = _as_view(value.b)
+        header = {
+            "kind": "lowrank",
+            "name": name,
+            "a_shape": list(value.a.shape),
+            "a_dtype": wire_dtype(value.a),
+            "b_shape": list(value.b.shape),
+            "b_dtype": wire_dtype(value.b),
+            "alpha": float(value.alpha),
+            "rank": int(value.rank),
+            "orig_shape": list(value.orig_shape),
+            "orig_dtype": str(np.dtype(value.orig_dtype)),
+        }
+        hbytes = json.dumps(header, sort_keys=True).encode()
+        return [_U32.pack(len(hbytes)) + hbytes, a, b]
     if isinstance(value, QuantizedTensor):
         payload = _as_view(value.payload)
         absmax = _as_view(value.absmax) if value.absmax is not None else b""
@@ -203,7 +250,7 @@ def serialize_item_views(name: str, value: Any) -> Views:
             "name": name,
             "fmt": value.fmt,
             "payload_shape": list(value.payload.shape),
-            "payload_dtype": str(numpy_dtype(value.payload.dtype)),
+            "payload_dtype": wire_dtype(value.payload),
             "absmax_len": views_nbytes([absmax]),
             "absmax_shape": list(value.absmax.shape) if value.absmax is not None else [],
             "orig_shape": list(value.orig_shape),
@@ -214,20 +261,22 @@ def serialize_item_views(name: str, value: Any) -> Views:
         if views_nbytes([absmax]):
             views.append(absmax)
         return views
-    arr = as_numpy(value)
+    if not isinstance(value, torch.Tensor):
+        value = np.asarray(value)
     header = {
         "kind": "array",
         "name": name,
-        "shape": list(arr.shape),
-        "dtype": str(arr.dtype),
+        "shape": list(value.shape),
+        "dtype": wire_dtype(value),
     }
     hbytes = json.dumps(header, sort_keys=True).encode()
-    return [_U32.pack(len(hbytes)) + hbytes, _as_view(arr)]
+    return [_U32.pack(len(hbytes)) + hbytes, _as_view(value)]
 
 
 def serialize_item(name: str, value: Any) -> bytes:
-    """Serialize one state-dict item (array/tensor, QuantizedTensor or
-    SparseTensor) to contiguous bytes — the views, joined."""
+    """Serialize one state-dict item (array/tensor, QuantizedTensor,
+    SparseTensor or LowRankDelta) to contiguous bytes — the views,
+    joined."""
     return join_views(serialize_item_views(name, value))
 
 
@@ -252,17 +301,20 @@ def declared_item_nbytes(buf: Union[bytes, bytearray, memoryview]) -> int | None
             body = int(header["n"])
         elif kind == "array":
             shape = tuple(header["shape"])
-            body = int(np.prod(shape)) * np.dtype(header["dtype"]).itemsize if shape \
-                else np.dtype(header["dtype"]).itemsize
+            body = int(np.prod(shape)) * storage_dtype(header["dtype"]).itemsize if shape \
+                else storage_dtype(header["dtype"]).itemsize
         elif kind == "qtensor":
             pshape = tuple(header["payload_shape"])
-            pdtype = np.dtype(header["payload_dtype"])
+            pdtype = storage_dtype(header["payload_dtype"])
             body = (int(np.prod(pshape)) if pshape else 1) * pdtype.itemsize
             body += int(header["absmax_len"])
         elif kind == "sparse":
             k = int(header["k"])
             body = k * (np.dtype(header["idx_dtype"]).itemsize
                         + np.dtype(header["val_dtype"]).itemsize)
+        elif kind == "lowrank":
+            body = sum(int(np.prod(header[f"{f}_shape"]))
+                       * storage_dtype(header[f"{f}_dtype"]).itemsize for f in "ab")
         else:
             return None
     except (KeyError, TypeError, ValueError):
@@ -270,11 +322,18 @@ def declared_item_nbytes(buf: Union[bytes, bytearray, memoryview]) -> int | None
     return 4 + hlen + body
 
 
-def _lowrank_not_ported(header: Mapping[str, Any]) -> None:
-    raise NotImplementedError(
-        f"item {header.get('name')!r} is a lowrank (LoRA) wire item; the "
-        "LoRA plane is not ported to repro_torch yet (ROADMAP A10)"
-    )
+def _lowrank(header: Mapping[str, Any], read: Any) -> LowRankDelta:
+    """The factor pair of a ``lowrank`` header; ``read(dtype, count)``
+    returns the next ``count`` words of ``dtype`` from the item body."""
+    factors = []
+    for f in "ab":
+        shape = tuple(header[f"{f}_shape"])
+        dtype = header[f"{f}_dtype"]
+        words = read(storage_dtype(dtype), int(np.prod(shape))).reshape(shape)
+        factors.append(_typed(words, dtype))
+    return LowRankDelta(factors[0], factors[1], float(header["alpha"]),
+                        int(header["rank"]), tuple(header["orig_shape"]),
+                        np.dtype(header["orig_dtype"]))
 
 
 def deserialize_item(buf: Union[bytes, bytearray, memoryview, Sequence]) -> tuple[str, Any, int]:
@@ -310,12 +369,19 @@ def deserialize_item(buf: Union[bytes, bytearray, memoryview, Sequence]) -> tupl
                           np.dtype(header["orig_dtype"]))
         return header["name"], sp, off
     if header["kind"] == "lowrank":
-        _lowrank_not_ported(header)
+        def read(dtype: np.dtype, count: int) -> np.ndarray:
+            nonlocal off
+            words = np.frombuffer(mv, dtype, count=count, offset=off)
+            off += count * dtype.itemsize
+            return words
+
+        return header["name"], _lowrank(header, read), off
     if header["kind"] == "qtensor":
         pshape = tuple(header["payload_shape"])
-        pdtype = np.dtype(header["payload_dtype"])
+        pdtype = storage_dtype(header["payload_dtype"])
         pbytes = int(np.prod(pshape)) * pdtype.itemsize if pshape else pdtype.itemsize
-        payload = np.frombuffer(mv, pdtype, count=int(np.prod(pshape)), offset=off).reshape(pshape)
+        payload = _typed(np.frombuffer(mv, pdtype, count=int(np.prod(pshape)),
+                                       offset=off).reshape(pshape), header["payload_dtype"])
         off += pbytes
         absmax = None
         if header["absmax_len"]:
@@ -330,10 +396,10 @@ def deserialize_item(buf: Union[bytes, bytearray, memoryview, Sequence]) -> tupl
         )
         return header["name"], value, off
     shape = tuple(header["shape"])
-    dtype = np.dtype(header["dtype"])
+    dtype = storage_dtype(header["dtype"])
     count = int(np.prod(shape)) if shape else 1
     arr = np.frombuffer(mv, dtype, count=count, offset=off).reshape(shape)
-    return header["name"], arr, off + count * dtype.itemsize
+    return header["name"], _typed(arr, header["dtype"]), off + count * dtype.itemsize
 
 
 def _deserialize_item_segments(cur: SegmentCursor) -> tuple[str, Any, int]:
@@ -352,14 +418,17 @@ def _deserialize_item_segments(cur: SegmentCursor) -> tuple[str, Any, int]:
                           np.dtype(header["orig_dtype"]))
         return header["name"], sp, cur.consumed
     if header["kind"] == "lowrank":
-        _lowrank_not_ported(header)
+        def read(dtype: np.dtype, count: int) -> np.ndarray:
+            return np.frombuffer(cur.read(count * dtype.itemsize), dtype, count=count)
+
+        return header["name"], _lowrank(header, read), cur.consumed
     if header["kind"] == "qtensor":
         pshape = tuple(header["payload_shape"])
-        pdtype = np.dtype(header["payload_dtype"])
+        pdtype = storage_dtype(header["payload_dtype"])
         pcount = int(np.prod(pshape)) if pshape else 1
-        payload = np.frombuffer(
+        payload = _typed(np.frombuffer(
             cur.read(pcount * pdtype.itemsize), pdtype, count=pcount
-        ).reshape(pshape)
+        ).reshape(pshape), header["payload_dtype"])
         absmax = None
         if header["absmax_len"]:
             ashape = tuple(header["absmax_shape"])
@@ -373,12 +442,12 @@ def _deserialize_item_segments(cur: SegmentCursor) -> tuple[str, Any, int]:
         )
         return header["name"], value, cur.consumed
     shape = tuple(header["shape"])
-    dtype = np.dtype(header["dtype"])
+    dtype = storage_dtype(header["dtype"])
     count = int(np.prod(shape)) if shape else 1
     arr = np.frombuffer(
         cur.read(count * dtype.itemsize), dtype, count=count
     ).reshape(shape)
-    return header["name"], arr, cur.consumed
+    return header["name"], _typed(arr, header["dtype"]), cur.consumed
 
 
 def serialize_container(sd: Mapping[str, Any]) -> bytes:

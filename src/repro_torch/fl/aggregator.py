@@ -19,8 +19,8 @@ The running sums live on the aggregator's ``device``, and ``finish``
 returns tensors there. :class:`QuantizedFedAvgAggregator` folds each
 int8 item through the in-place CUDA fold kernel
 (:func:`repro_torch.kernels.ops.dequant_accumulate8_into`) on the card,
-its plain version on the CPU. The LoRA aggregator (``lora-fedavg``) is
-not ported yet (ROADMAP A10).
+its plain version on the CPU. :class:`LoRAFedAvgAggregator` folds
+low-rank factor pairs and merges them once, in ``finish``.
 """
 from __future__ import annotations
 
@@ -32,9 +32,10 @@ from typing import Any, Union
 import torch
 
 from repro_torch.core.messages import Message
-from repro_torch.core.quantization import QuantizedTensor, dequantize_batch
+from repro_torch.core.quantization import QuantizedTensor, dequantize, dequantize_batch
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as obs_trace
+from repro_torch.peft.lowrank import LowRankDelta
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.trees import as_tensor
 
@@ -214,6 +215,103 @@ class QuantizedFedAvgAggregator(Aggregator):
         return out
 
 
+class LoRAFedAvgAggregator(Aggregator):
+    """Streams :class:`~repro_torch.peft.lowrank.LowRankDelta`
+    contributions into a sample-weighted average without materializing a
+    dense per-client delta. ``accept_item`` appends each tensor's factor
+    pair, on the device: the left factor scaled by ``weight * alpha/rank``
+    (that product taken in float64 and rounded to fp32 once, as the
+    reference's ``np.float32(weight * scale)``), the right factor as
+    received. Server state during the fold is O(clients * rank * dim).
+    ``finish`` merges each tensor once,
+
+    .. math:: (1/W) \\sum_i w_i (\\alpha_i/r_i) A_i B_i
+              = \\text{concat}_1(\\tilde A_i) \\cdot \\text{concat}_0(B_i) / W,
+
+    with the factors concatenated along the rank axis in acceptance order
+    (ranks and alphas may differ between clients). Other items fold
+    through the plain FedAvg, sharing its weight: a ``QuantizedTensor``
+    that a ``lora -> quantize`` uplink left quantized is dequantized
+    first. ``consumes_wire``: the job builds its uplink undecoded.
+    """
+
+    name = "lora-fedavg"
+    consumes_wire = True
+
+    def __init__(self, device: Any = None) -> None:
+        self.device = resolve_device(device)
+        self._a: dict[str, list[torch.Tensor]] = {}      # weight-scaled left factors
+        self._b: dict[str, list[torch.Tensor]] = {}      # right factors
+        self._shape: dict[str, tuple[int, ...]] = {}
+        self._plain = FedAvgAggregator(self.device)
+        self._plain_names: set[str] = set()
+        self._weight = 0.0
+        self.accepted = 0
+        self._lock = threading.Lock()
+
+    def begin(self, meta: Mapping[str, Any]) -> float:
+        w = self.weight_of(meta)
+        with obs_trace.span("agg.begin", "agg",
+                            client=str(meta.get("client", "")), weight=w):
+            with self._lock:
+                self._weight += w
+                self.accepted += 1
+        return w
+
+    def accept_item(self, name: str, value: Any, weight: float) -> None:
+        if isinstance(value, LowRankDelta):
+            with self._lock:
+                known = self._shape.get(name)
+                if known is not None and known != tuple(value.orig_shape):
+                    raise ValueError(
+                        f"contribution for {name!r} has shape "
+                        f"{tuple(value.orig_shape)}; aggregate holds {known}"
+                    )
+                self._shape[name] = tuple(value.orig_shape)
+                s = torch.tensor(weight * value.scale, dtype=torch.float32,
+                                 device=self.device)
+                self._a.setdefault(name, []).append(
+                    as_tensor(value.a, self.device).to(torch.float32) * s)
+                self._b.setdefault(name, []).append(
+                    as_tensor(value.b, self.device).to(torch.float32))
+        else:
+            if isinstance(value, QuantizedTensor):
+                # small tensors a composed lora -> quantize stack left
+                # quantized: recover precision, fold through plain FedAvg
+                value = dequantize(value, self.device).to(torch.float32)
+            self._plain.accept_item(name, value, weight)
+            with self._lock:
+                self._plain_names.add(name)
+
+    def finish(self) -> dict[str, torch.Tensor]:
+        with obs_trace.span("agg.finish", "agg"), self._lock:
+            out: dict[str, torch.Tensor] = {}
+            inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(
+                self._weight if self._weight else 1.0, dtype=torch.float32)
+            tr = obs_trace.ACTIVE
+            for name, a_parts in self._a.items():
+                a_cat = torch.cat(a_parts, dim=1)
+                b_cat = torch.cat(self._b[name], dim=0)
+                if tr is None:
+                    dense = ops.low_rank_merge(a_cat, b_cat, inv)
+                else:
+                    with tr.span("kernel.lora_merge", "kernel", item=name,
+                                 rank=int(a_cat.shape[1])):
+                        dense = ops.low_rank_merge(a_cat, b_cat, inv)
+                out[name] = dense.reshape(self._shape[name])
+            if self._plain_names:
+                # reuse the plain aggregator's running sum (shares self._weight)
+                self._plain._weight = self._weight
+                out.update(self._plain.finish())
+            self._a = {}
+            self._b = {}
+            self._shape = {}
+            self._plain_names = set()
+            self._weight = 0.0
+            self.accepted = 0
+        return out
+
+
 class CollectingSink:
     """Protocol-shaped sink that just rebuilds the payload dict; ``finish``
     dequantizes any items still in wire form onto ``device``."""
@@ -241,8 +339,9 @@ class CollectingSink:
 
 _AGGREGATORS: dict[str, Callable[..., Aggregator]] = {}
 
-#: aggregator names the reference registers that this package has not ported
-NOT_PORTED_AGGREGATORS = ("lora-fedavg",)
+#: aggregator names the reference registers that this package has not
+#: ported: none
+NOT_PORTED_AGGREGATORS: tuple[str, ...] = ()
 
 
 def register_aggregator(
@@ -286,10 +385,6 @@ def build_aggregator(spec: Union[str, Mapping[str, Any], Aggregator, None],
     try:
         factory = _AGGREGATORS[spec]
     except KeyError:
-        if spec in NOT_PORTED_AGGREGATORS:
-            raise NotImplementedError(
-                f"aggregator {spec!r} is not ported to repro_torch yet (ROADMAP A10)"
-            ) from None
         raise ValueError(
             f"unknown aggregator {spec!r}; registered: {registered_aggregators()}"
         ) from None
@@ -314,3 +409,4 @@ def aggregator_consumes_wire(
 
 register_aggregator("fedavg")(FedAvgAggregator)
 register_aggregator("quantized-fedavg")(QuantizedFedAvgAggregator)
+register_aggregator("lora-fedavg")(LoRAFedAvgAggregator)

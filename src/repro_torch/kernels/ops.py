@@ -115,3 +115,50 @@ def dequant_accumulate8(qs: torch.Tensor, absmaxes: torch.Tensor, weights) -> to
     -> (nblocks, 4096) fp32."""
     weights = torch.as_tensor(weights, dtype=torch.float32, device=qs.device)
     return fused_dequant_agg.dequant_accumulate8(qs, absmaxes, weights)
+
+
+# ---------------------------------------------------------------------------
+# low-rank (LoRA) factorization: library calls, not kernels
+# ---------------------------------------------------------------------------
+# The reference computes both outside any Pallas kernel ("XLA has no
+# Pallas-level SVD", src/repro/kernels/ops.py:343-347), so the port takes
+# torch's exact SVD (cuSOLVER on the card, LAPACK on the CPU) and
+# ``torch.matmul``. Neither has a launch counter or a KERNELS entry.
+
+#: cuSOLVER driver of the card's SVD: ``gesvdj``, the other one torch
+#: offers, was faster but not exact on the card (``python3 chip_smoke.py
+#: --svd-drivers``, PERF.md §6)
+SVD_DRIVER = "gesvd"
+
+
+def low_rank_decompose(x: torch.Tensor, rank: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(m, n)`` float tensor -> rank-``rank`` factors ``a (m, rank)``,
+    ``b (rank, n)`` in fp32 on ``x``'s device, ``a @ b`` the best (Eckart–
+    Young) rank-``rank`` approximation of ``x``: the exact thin SVD,
+    truncated, the singular values absorbed into ``a``. Each right-factor
+    row is flipped so that its first largest-|x| entry is positive (a
+    zero entry counts as positive), the reference's canonical signs, so
+    one input always gives the same factors."""
+    if rank < 1:
+        raise ValueError(f"low-rank decompose needs rank >= 1, got {rank}")
+    if x.dim() != 2:
+        raise ValueError(f"low_rank_decompose takes a 2-D tensor, got shape {tuple(x.shape)}")
+    if rank > min(x.shape):
+        raise ValueError(f"rank {rank} exceeds min dim of shape {tuple(x.shape)}")
+    driver = SVD_DRIVER if x.is_cuda else None
+    u, s, vt = torch.linalg.svd(x.to(torch.float32), full_matrices=False, driver=driver)
+    u, s, vt = u[:, :rank], s[:rank], vt[:rank, :]
+    j = torch.argmax(vt.abs(), dim=1)
+    signs = torch.sign(vt[torch.arange(rank, device=vt.device), j])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    a = u * (s * signs)[None, :]
+    b = vt * signs[:, None]
+    return a.contiguous(), b.contiguous()
+
+
+def low_rank_merge(a: torch.Tensor, b: torch.Tensor, scale) -> torch.Tensor:
+    """``(a @ b) * scale`` in fp32 on ``a``'s device; ``scale`` is rounded
+    to fp32 once (a 0-d tensor, as the reference's ``jnp.float32``). Also
+    the server's merge of K clients' concatenated factor blocks."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=a.device)
+    return (a.to(torch.float32) @ b.to(torch.float32)) * s

@@ -27,6 +27,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention,
 )
 from repro_torch.models import base as B
+from repro_torch.peft.lowrank import LowRankDelta
+from repro_torch.utils.trees import numpy_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +335,81 @@ def embed_tokens(tokens: torch.Tensor, p: dict[str, torch.Tensor],
 def lm_logits(x: torch.Tensor, p: dict[str, torch.Tensor]) -> torch.Tensor:
     x = rms_norm(x, p["final_norm"])
     return x @ p["lm_head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (parameter-efficient payloads)
+# ---------------------------------------------------------------------------
+
+def _lora_eligible(pd: ParamDef, rank: int) -> bool:
+    if len(pd.shape) != 2:
+        return False
+    m, n = pd.shape
+    return rank <= min(m, n) and rank * (m + n) < m * n
+
+
+def lora_adapter_spec(spec: dict[str, Any], rank: int) -> dict[str, Any]:
+    """The adapter ParamDef tree for a base parameter spec: every
+    eligible 2-D matrix (rank fits, factors beat the dense form) maps to
+    an ``{"a", "b"}`` factor pair carrying the base spec's axes on its
+    outer dims. ``b`` is zero-initialized, so a fresh adapter contributes
+    an exactly-zero delta (standard LoRA init). Norms, biases and stacked
+    (3-D) tensors are left out."""
+    out: dict[str, Any] = {}
+    for k, v in spec.items():
+        if isinstance(v, ParamDef):
+            if _lora_eligible(v, rank):
+                m, n = v.shape
+                out[k] = {
+                    "a": ParamDef((m, rank), (v.axes[0], None)),
+                    "b": ParamDef((rank, n), (None, v.axes[1]), init="zeros"),
+                }
+        else:
+            sub = lora_adapter_spec(v, rank)
+            if sub:
+                out[k] = sub
+    return out
+
+
+def lora_adapter_params(
+    generator: torch.Generator, spec: dict[str, Any], rank: int,
+    dtype: torch.dtype = torch.float32, alpha: Optional[float] = None,
+) -> dict[str, Any]:
+    """Native-adapter mode: trainable LoRA pairs as a **flat** dict of
+    :class:`~repro_torch.peft.lowrank.LowRankDelta` on ``generator``'s
+    device, keyed by the base parameter's ``/``-joined path (the
+    reference's keys). ``a`` is drawn from ``generator`` through
+    :func:`build_params`; ``b`` is zeros. Clients put these straight into
+    a Task Result payload: the ``lowrank`` wire kind and ``lora-fedavg``
+    handle them as they do stage-decomposed deltas."""
+    pairs = build_params(generator, lora_adapter_spec(spec, rank), dtype, generator.device)
+    alpha_f = float(alpha) if alpha is not None else float(rank)
+    out: dict[str, Any] = {}
+
+    def walk(base_node: dict[str, Any], pair_node: dict[str, Any], path: str) -> None:
+        for k, pair in pair_node.items():
+            p = f"{path}/{k}" if path else k
+            base = base_node[k]
+            if isinstance(base, ParamDef):
+                out[p] = LowRankDelta(pair["a"], pair["b"], alpha_f, rank,
+                                      tuple(base.shape), numpy_dtype(pair["a"].dtype))
+            else:
+                walk(base, pair, p)
+
+    walk(spec, pairs, "")
+    return out
+
+
+def merge_lora(params: dict[str, Any], adapters: dict[str, Any]) -> dict[str, Any]:
+    """Fold adapter deltas into a flat base state dict:
+    ``params[name] + (alpha/rank) * a @ b`` per adapter entry (on the base
+    tensor's device), other entries untouched. The result dtype follows
+    the base parameters."""
+    out = dict(params)
+    for name, delta in adapters.items():
+        base = out[name]
+        out[name] = base + delta.to_dense(base.device).to(base.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -190,3 +190,24 @@ def from_reference_state(
             raise ValueError(f"{name!r} is a {type(arr).__name__}, not a numpy array")
     check_state(flat_np, expect)
     return {name: torch.tensor(flat_np[name], device=device) for name in sorted(flat_np)}
+
+
+def from_reference_items(flat: Mapping[str, Any], device: Any) -> dict[str, Any]:
+    """A reference payload whose items may be low-rank factor pairs
+    (``repro.peft.lowrank.LowRankDelta``: numpy ``a``/``b`` and the LoRA
+    metadata, recognised by those attributes) as the port's items on
+    ``device``: each pair a :class:`repro_torch.peft.lowrank.LowRankDelta`
+    of tensors, each array a tensor. Names keep their order."""
+    from repro_torch.peft.lowrank import LowRankDelta  # lazy: peft imports this module
+
+    out: dict[str, Any] = {}
+    for name, value in flat.items():
+        if all(hasattr(value, f) for f in ("a", "b", "alpha", "rank", "orig_shape")):
+            out[name] = LowRankDelta(
+                torch.tensor(np.asarray(value.a), device=device),
+                torch.tensor(np.asarray(value.b), device=device),
+                float(value.alpha), int(value.rank), tuple(value.orig_shape),
+                np.dtype(value.orig_dtype))
+        else:
+            out[name] = torch.tensor(np.asarray(value), device=device)
+    return out

@@ -16,10 +16,14 @@ Two gloo ranks on the card run the int8 collective against the
 same collective on the CPU, bitwise. The quantize and dequantize filters
 launch one kernel per item, and ``examples/jobs/legacy_quantized.json``
 at smoke width with fixed updates gives the CPU's weights and wire bytes
-on the card, in container and regular transmission. Imports torch and
-the port only, so
-it runs on the card machine,
-which has no JAX:
+on the card, in container and regular transmission. The LoRA plane:
+the card's SVD gives the same factors twice with canonical signs and
+the CPU's fidelity, ``topk`` and ``bf16`` give the CPU's bits, and
+``examples/jobs/lora_federation.json`` with fixed updates gives the
+CPU's nf4 items and envelopes (but the factors' own bits) with weights
+within the SVDs' bound (``repro_torch.testing.lora_fixed_bounds``).
+Imports torch and the port only, so it runs on the card machine, which
+has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -32,6 +36,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import testing  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     ATTENTION_CASES,
@@ -414,8 +419,7 @@ def test_async_job_on_the_card_matches_the_cpu(cuda, name):
     """An example async job at smoke width with fixed client updates: the
     card and the CPU give the same timeline, runtime stats, wire bytes and
     final weights; every kernel the path implies launched on the card, as
-    often as the spec's rules imply (``chip_smoke.async_launches``)."""
-    import importlib.util
+    often as the spec's rules imply (``repro_torch.testing.async_launches``)."""
     import json
     from pathlib import Path
 
@@ -451,11 +455,90 @@ def test_async_job_on_the_card_matches_the_cpu(cuda, name):
     assert got.get("adaptive_fmts") == want.get("adaptive_fmts")
     assert launches["dequant_accumulate8_into"] == 0
     if name == "streaming_aggregation":
-        root = Path(__file__).resolve().parents[1]
-        loader = importlib.util.spec_from_file_location("chip_smoke", root / "chip_smoke.py")
-        chip_smoke = importlib.util.module_from_spec(loader)
-        loader.loader.exec_module(chip_smoke)
         assert launches == {**{k: 0 for k in ops.KERNELS},
-                            **chip_smoke.async_launches(spec, list(init))}
+                            **testing.async_launches(spec, list(init))}
     for k, w in want["final_weights"].items():
         assert torch.equal(_bits(got["final_weights"][k].cpu()), _bits(w)), k
+
+
+@pytest.mark.cuda
+def test_lora_decompose_on_the_card_is_deterministic_canonical_and_the_cpus(cuda):
+    """The card's SVD (``ops.SVD_DRIVER``) gives the same factors twice,
+    canonical signs, and the CPU's fidelity ``||x - ab||_F`` within 1e-6
+    relative."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(4096, 1024, generator=gen) * 0.02
+    a, b = ops.low_rank_decompose(x.to(cuda), 8)
+    a2, b2 = ops.low_rank_decompose(x.to(cuda), 8)
+    assert torch.equal(_bits(a), _bits(a2)) and torch.equal(_bits(b), _bits(b2))
+    rows = torch.arange(8, device=cuda)
+    assert (b[rows, b.abs().argmax(dim=1)] > 0).all()
+    ca, cb = ops.low_rank_decompose(x, 8)
+    x64 = x.double()
+    got = (x64 - a.cpu().double() @ b.cpu().double()).norm()
+    want = (x64 - ca.double() @ cb.double()).norm()
+    assert abs(float(got - want)) <= 1e-6 * float(want)
+
+
+@pytest.mark.cuda
+def test_topk_and_bf16_on_the_card_equal_the_cpu(cuda):
+    """``topk`` selects by a stable sort on the card: the numpy selection's
+    entries, NaNs of any sign last and ties in index order; ``bf16``
+    narrows by bit arithmetic: the CPU's words, NaN as ``sign | 0x7fc0``."""
+    from repro_torch.core import quantization as q
+    from repro_torch.core.sparse import topk_sparsify
+
+    words = np.random.default_rng(2).integers(0, 1 << 32, 1 << 20, dtype=np.uint64)
+    x = words.astype(np.uint32).view(np.float32)
+    x[::97] = x[5]                                     # ties
+    x[::89] = -x[5]
+    for frac in (0.001, 0.3, 1.0):
+        got = topk_sparsify(torch.from_numpy(x).to(cuda), frac)
+        want = topk_sparsify(x, frac)
+        assert got.indices.tobytes() == want.indices.tobytes()
+        assert got.values.tobytes() == want.values.tobytes()
+    t = torch.from_numpy(x)
+    narrow = q.narrow_bf16(t.to(cuda)).view(torch.int16).cpu()
+    assert torch.equal(narrow, q.narrow_bf16(t).view(torch.int16))
+    assert torch.equal(_bits(q.widen_bf16(narrow.view(torch.bfloat16).to(cuda)).cpu()),
+                       _bits(q.widen_bf16(narrow.view(torch.bfloat16))))
+
+
+@pytest.mark.cuda
+def test_lora_job_on_the_card_matches_the_cpu(cuda):
+    """``examples/jobs/lora_federation.json`` at smoke width with fixed
+    client updates, card vs CPU (``repro_torch.testing.lora_wire_compare``):
+    the same envelopes but the factors' bits and crc32 digits, the nf4
+    items bitwise, global weights within
+    ``repro_torch.testing.lora_fixed_bounds``; B4 and B5 launched as
+    ``repro_torch.testing.lora_launches`` says."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.fl.job import build_job, initial_weights
+
+    with open(Path(__file__).resolve().parents[1] / "examples" / "jobs"
+              / "lora_federation.json") as fh:
+        spec = json.load(fh)
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+    outs = {}
+    for dev in ("cpu", cuda):
+        jb = build_job(spec, device=dev, weights=init)
+        log = testing.envelope_log(jb.sim.proxies[0].pipelines["task_result"])
+        for i, proxy in enumerate(jb.sim.proxies):
+            proxy.executor.train_fn = testing.fixed_train_fn(init, i, 0.05 * (i + 1))
+        ops.reset_launch_counts()
+        outs[str(dev)] = (jb.run(), log, ops.launch_counts())
+    (want, want_log, cpu_launches), (got, got_log, launches) = outs["cpu"], outs[str(cuda)]
+    assert cpu_launches == {k: 0 for k in ops.KERNELS}
+    assert launches == {**{k: 0 for k in ops.KERNELS},
+                        **testing.lora_launches(spec, {k: v.shape for k, v in init.items()})}
+    cmp = testing.lora_wire_compare(want_log, got_log)
+    assert cmp["holds"] and got["wire_bytes"] - want["wire_bytes"] == cmp["crc_digit_diff"]
+    want_w = {k: v.numpy() for k, v in want["final_weights"].items()}
+    errs = testing.relative_errors(want_w,
+                                   {k: v.cpu() for k, v in got["final_weights"].items()})
+    factored = testing.lora_factor_bytes(spec, {k: v.shape for k, v in init.items()})[1]
+    bounds = testing.lora_fixed_bounds(spec, init, want_w, factored)
+    assert all(errs[n] <= bounds[n] for n in factored), (errs, bounds)
+    assert all(errs[n] == 0 for n in set(init) - set(factored)), errs

@@ -157,7 +157,7 @@ def test_mask_filter_is_stateless_in_both_packages():
     assert not pl._filter_is_stateful(sa.SecureMaskFilter(0, CLIENTS, device="cpu"))
     assert "secure-mask" in pl.registered_stages()
     assert "secure-mask" not in pl.NOT_PORTED_STAGES
-    assert pl.NOT_PORTED_STAGES == ("lora", "topk", "zstd")
+    assert pl.NOT_PORTED_STAGES == ()
 
 
 def _stack(i):

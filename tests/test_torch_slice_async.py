@@ -22,7 +22,7 @@ same initial weights (the reference's, carried across).
    count in ``runtime_stats`` are still the reference's; wire bytes and
    simulated times agree within 1e-4 relative (readings: 181 of
    17,521,453 bytes, times within 1.03e-5). The final weights of both
-   specs hold C1's bound (``chip_smoke.c1_counts``, which the card's
+   specs hold C1's bound (``repro_torch.testing.c1_counts``, which the card's
    check uses too): each element within one blockwise8 step of its block
    + 1e-5 relative; at most a 1e-4 share of them (a 4-bit code that
    flipped on a hop: the nf4 downlink here, the 3g clients' nf4 uplink
@@ -33,7 +33,7 @@ same initial weights (the reference's, carried across).
    3 of 1,443,072 (2.1e-6) and none for async_hetero_pipeline.
 3. The plain versions run exactly as the path implies on the CPU (the
    counters stay 0), counted from the spec's own rules
-   (``chip_smoke.async_launches``): the uplink's blockwise8 quantize
+   (``repro_torch.testing.async_launches``): the uplink's blockwise8 quantize
    twice a dispatch (the byte-pricing pass and the fold transfer), one
    nf4 quantize a downlink, one nf4 dequantize a downlinked nf4 item,
    one blockwise8 dequantize an uplinked item, no fold kernel.
@@ -41,7 +41,6 @@ same initial weights (the reference's, carried across).
    give identical timelines and bitwise-equal weights; the job refuses
    ``server_quantized_aggregation`` with FedBuff; the CLI runs the spec.
 """
-import importlib.util
 import json
 from pathlib import Path
 
@@ -52,15 +51,12 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 from repro.fl import job as ref_job  # noqa: E402
+from repro_torch import testing  # noqa: E402
 from repro_torch.fl import job as port_job  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 JOBS = ROOT / "examples" / "jobs"
-#: the script's expected launches and C1's bound, shared with the card's check
-_loader = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_loader)
-_loader.loader.exec_module(chip_smoke)
 SPECS = {name: json.loads((JOBS / f"{name}.json").read_text())
          for name in ("streaming_aggregation", "async_hetero_pipeline")}
 
@@ -165,7 +161,7 @@ def test_trained_run_matches_the_reference_within_the_c1_bound(name, trained):
     assert launches == {kernel: 0 for kernel in ops.KERNELS}
     if name == "streaming_aggregation":
         # the adaptive uplink's formats follow the links, not the spec's rules
-        assert calls == chip_smoke.async_launches(spec, list(ref_out["final_weights"]))
+        assert calls == testing.async_launches(spec, list(ref_out["final_weights"]))
     assert [e[:2] + e[3:] for e in _events(port_jb)] == [e[:2] + e[3:] for e in _events(ref_jb)]
     np.testing.assert_allclose([e[2] for e in _events(port_jb)],
                                [e[2] for e in _events(ref_jb)], rtol=1e-4)
@@ -183,7 +179,7 @@ def test_trained_run_matches_the_reference_within_the_c1_bound(name, trained):
     want = {k: torch.from_numpy(np.asarray(v)) for k, v in ref_out["final_weights"].items()}
     got = {k: torch.as_tensor(_np(v)) for k, v in port_out["final_weights"].items()}
     assert all(bool(torch.isfinite(v).all()) for v in got.values())
-    c1 = chip_smoke.c1_counts(torch, want, got,
+    c1 = testing.c1_counts(want, got,
                               2 * port_job.normalize_spec(spec)["lr"] * spec["local_steps"])
     print(c1)
     assert c1["holds"], c1
