@@ -105,6 +105,23 @@ serving on the card against the CPU at a prompt of 200 (every prefill
 length goes through the kernel); and a backward through the kernel, which
 must raise.
 
+Last, the live plane (``repro_torch.launch.federation``) over real TCP
+on 127.0.0.1: (A) ``examples/jobs/live_smoke.json`` at full width, 2
+clients of 4 and 1 round of 2, through ``run_live_federation(...,
+spawn=False)`` with the clients on threads of this script (taking turns
+to train), the counters zeroed before and read after (one B1 an uplink;
+the spec's dense ``fedavg`` dequantizes every item, one B2 each), the
+device peak, the walls by phase, and the weights bitwise ``run_job``'s;
+(B) ``examples/jobs/chaos_federation.json`` at full width, 2 clients of 4
+and 2 rounds of 3, site-1 behind its own ChaosProxy with the spec's stall
+plan, the launches derived from the server's grant log and the weights
+bitwise ``reference_run``'s over the recorded contributor sets; (C) both
+specs as they stand through ``python -m repro_torch.launch.federation``
+with subprocess clients on the card (``--verify-sim``,
+``--verify-chaos``), and live_smoke.json with fixed updates card vs CPU;
+(D) full-width checkpoints in blockwise8 and nf4 (B1/B2, B4/B5 one an
+item; files bitwise the ones the CPU writes) and a ``--resume``.
+
 ``--svd-drivers`` also times both exact cuSOLVER SVD drivers (``gesvd``,
 ``gesvdj``) once on the largest decomposed item, the measurement that
 chose ``ops.SVD_DRIVER``.
@@ -124,6 +141,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -163,6 +181,18 @@ ASYNC_HETERO_JOB = os.path.join(REPO, "examples", "jobs", "async_hetero_pipeline
 #: the fifth path: the LoRA plane, examples/jobs/lora_federation.json at
 #: full-width llama3.2-1b, its 4 clients and 2 rounds uncut
 LORA_JOB = os.path.join(REPO, "examples", "jobs", "lora_federation.json")
+#: the sixth path: the live plane over real TCP, examples/jobs/live_smoke.json
+#: and chaos_federation.json at full width, clients cut 4 -> 2 (memory: one
+#: full-width AdamW step peaks at ~36 GB, so the clients take turns to train
+#: and two fit beside the server on the 80 GB card), rounds cut 2 -> 1 and
+#: 3 -> 2 (time: the script must stay under 1,000 s); and both at smoke
+#: width as they stand through the command line
+LIVE_JOB = os.path.join(REPO, "examples", "jobs", "live_smoke.json")
+CHAOS_JOB = os.path.join(REPO, "examples", "jobs", "chaos_federation.json")
+LIVE_CLIENTS = 2
+LIVE_ROUNDS = 1
+CHAOS_ROUNDS = 2
+LIVE_TIMEOUT_S = 600.0
 #: the SVD drivers ``--svd-drivers`` times on the path's largest
 #: decomposed item (blocks.mlp.w_up / w_gate with their 16 layers collapsed)
 SVD_SHAPE = (32768, 8192)
@@ -2898,6 +2928,409 @@ def run_fl_train(torch, n: int) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# The live plane (repro_torch.launch.federation): full width over real TCP
+# ---------------------------------------------------------------------------
+
+def load_job(path: str, **over) -> dict:
+    with open(path) as fh:
+        return {**json.load(fh), **over}
+
+
+class PhaseClock:
+    """Wall seconds summed by key across the threads of a live run."""
+
+    def __init__(self) -> None:
+        self.seconds: dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def wrap(self, fn, key):
+        """``fn`` timed; ``key(*args)`` names what its seconds count as."""
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    name = key(*args)
+                    self.seconds[name] = self.seconds.get(name, 0.0) + dt
+        return timed
+
+
+def client_threads(clients: list) -> tuple[list, list]:
+    """Run each ``FederationClient`` on a thread of its own; returns
+    (threads, errors)."""
+    threads, errors = [], []
+    for client in clients:
+        def run(c=client):
+            try:
+                c.run()
+            except Exception as exc:  # noqa: BLE001 - reported by join_live_clients
+                errors.append(f"{c.name}: {exc!r}")
+
+        threads.append(threading.Thread(target=run, daemon=True, name=f"live-{client.name}"))
+        threads[-1].start()
+    return threads, errors
+
+
+def start_live_clients(spec: dict, dev, server, clock: PhaseClock,
+                       addresses: dict | None = None) -> tuple[list, list]:
+    """A ``FederationClient`` thread for each client of ``spec``, at the
+    server's address (or at ``addresses[name]``), each built by
+    ``for_spec`` on ``dev`` and timed by phase; the server's broadcast
+    and gather are timed by round. The clients take turns to train (one
+    lock): a full-width AdamW step peaks at ~36 GB on the card beside
+    its 6 GB of weights, so two at once do not fit beside the server."""
+    from repro_torch.launch.federation import FederationClient
+
+    server._downlink = clock.wrap(server._downlink, lambda roster, rnd, w: f"round{rnd}.downlink")
+    server._gather = clock.wrap(server._gather, lambda roster, rnd: f"round{rnd}.uplink_fold")
+    train_lock = threading.Lock()
+    clients = []
+    for i in range(spec["clients"]):
+        client = FederationClient.for_spec(
+            spec, i, (addresses or {}).get(f"site-{i}", server.address),
+            timeout_s=LIVE_TIMEOUT_S, device=dev)
+        client._recv_task = clock.wrap(client._recv_task, lambda conn: "client.downlink_decode")
+        timed_train = clock.wrap(client.executor.execute, lambda task: "client.train")
+
+        def train(task, _timed=timed_train):
+            with train_lock:
+                return _timed(task)
+
+        client.executor.execute = train
+        client._send_result = clock.wrap(client._send_result,
+                                         lambda conn, rnd, res: "client.uplink_encode_send")
+        clients.append(client)
+    return client_threads(clients)
+
+
+def join_live_clients(started: list) -> None:
+    for threads, errors in started:
+        for t in threads:
+            t.join(timeout=LIVE_TIMEOUT_S)
+            if t.is_alive():
+                fail(f"live client thread {t.name} did not finish")
+        if errors:
+            fail(f"live clients failed: {errors}")
+
+
+class socket_clock:
+    """Times every chunk write of a live run (``streaming.send_chunk``):
+    the server's downlink sender threads apart from the clients'
+    uplinks."""
+
+    def __init__(self, clock: PhaseClock) -> None:
+        from repro_torch.core import streaming as sm
+
+        self.sm, self.clock = sm, clock
+
+    def __enter__(self):
+        self.orig = self.sm.send_chunk
+        self.sm.send_chunk = self.clock.wrap(
+            self.orig, lambda *a: "tcp.send_" + (
+                "downlink" if threading.current_thread().name.startswith("fed-downlink")
+                else "uplink"))
+
+    def __exit__(self, *exc) -> None:
+        self.sm.send_chunk = self.orig
+
+
+def compare_weights(torch, label: str, got: dict, want: dict) -> None:
+    """Fail unless ``got`` is bitwise ``want``, naming every item that is
+    not, with its count of differing elements and largest difference."""
+    diffs = []
+    if list(got) != list(want):
+        fail(f"{label}: item names differ: {sorted(set(got) ^ set(want))}")
+    for name, w in want.items():
+        g = got[name].to(w.device)
+        if not torch.equal(bits(torch, g), bits(torch, w)):
+            diffs.append(f"{name}: {int((g != w).sum())} of {w.numel()} differ, "
+                         f"max |diff| {float((g - w).abs().max()):.3g}")
+    if diffs:
+        fail(f"{label}: not bitwise equal: " + "; ".join(diffs))
+
+
+def live_report(torch, label: str, result: dict, wall: float, clock: PhaseClock,
+                launches: dict) -> dict:
+    telemetry = result["telemetry"]
+    wait = telemetry.get("histograms", {}).get("wire.encode_wait_us", {})
+    report = {
+        "wall_s": wall, "round_log": result["round_log"], "uplink_log": result["uplink_log"],
+        "bytes_down": result["bytes_down"], "bytes_up": result["bytes_up"],
+        "restarts": result["restarts"], "faults": result["faults"],
+        "phase_s": dict(sorted(clock.seconds.items())),
+        "sender_encode_wait_s": wait.get("sum", 0.0) / 1e6,
+        "launches": launches,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print(f"{label}: wall {wall:.3f} s, rounds "
+          + ", ".join(f"{r['round']}: {r['wall_s']:.3f} s {r['clients']}"
+                      + (f" stragglers {r['stragglers']}" if r["stragglers"] else "")
+                      for r in result["round_log"])
+          + f"; bytes_down {result['bytes_down']}, bytes_up {result['bytes_up']}, "
+          f"restarts {result['restarts']}")
+    print(f"{label} phases (s, summed over threads): "
+          + ", ".join(f"{k}={v:.3f}" for k, v in report["phase_s"].items())
+          + f", senders waiting for their encoders {report['sender_encode_wait_s']:.3f}")
+    print(f"{label} launches: {launches}; device peak {report['max_memory_allocated_bytes']} "
+          f"bytes")
+    return report
+
+
+def run_live_path(torch, dev, label: str, spec: dict, proxied: dict | None = None):
+    """One full-width live federation over real sockets on 127.0.0.1:
+    ``run_live_federation(spawn=False)`` with ``FederationClient`` threads
+    of this process (``proxied``: client name -> ChaosProxy plan), the
+    launch counters zeroed just before and read just after, so they and
+    the device peak cover the whole federation."""
+    from repro_torch.core.resilience import ChaosProxy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.federation import run_live_federation
+
+    clock, started, proxies = PhaseClock(), [], []
+
+    def on_listen(server):
+        addresses = {}
+        for name, plan in (proxied or {}).items():
+            proxies.append(ChaosProxy(server.address, plan).start())
+            addresses[name] = proxies[-1].address
+        started.append(start_live_clients(spec, dev, server, clock, addresses))
+
+    torch.cuda.synchronize()
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with socket_clock(clock):
+            result = run_live_federation(spec, spawn=False, device=dev,
+                                         round_timeout_s=LIVE_TIMEOUT_S, on_listen=on_listen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+    except Exception as exc:
+        fail(f"{label}: {exc!r}; the clients' errors: {[e for _, es in started for e in es]}; "
+             f"device peak {torch.cuda.max_memory_allocated()} bytes")
+    finally:
+        for proxy in proxies:
+            proxy.close()
+    join_live_clients(started)
+    return result, live_report(torch, label, result, wall, clock, launches)
+
+
+def check_live_launches(label: str, launches: dict, want: dict) -> None:
+    want = {name: want.get(name, 0) for name in launches}
+    if launches != want:
+        fail(f"kernel launches on the {label} path {launches} != {want}")
+
+
+def run_live(torch, dev) -> dict:
+    """Phase A: ``examples/jobs/live_smoke.json`` at full width over real
+    TCP, clients cut 4 -> 2 (memory), rounds 2 -> 1 (time). Each uplink
+    quantizes as one fused group (B1) in its client; the spec names no
+    aggregator, so
+    the server's dense ``fedavg`` dequantizes every item (B2) before it
+    folds: B1 = clients x rounds, B2 = that x 12; nothing else launches
+    (the downlink is fp32). The weights must be bitwise the port's
+    ``run_job`` on the same spec on the card (``--verify-sim``)."""
+    from repro_torch.fl.job import run_job
+    from repro_torch.testing import live_launches
+
+    spec = load_job(LIVE_JOB, smoke=False, clients=LIVE_CLIENTS, rounds=LIVE_ROUNDS)
+    clients, rounds = spec["clients"], spec["rounds"]
+    result, report = run_live_path(torch, dev, "live", spec)
+    want = live_launches(spec, result["uplink_log"])
+    if want != {"quantize_blockwise8": clients * rounds,
+                "dequantize_blockwise8": clients * rounds * N_ITEMS}:
+        fail(f"live: the grant log implies {want}, not one clean uplink a client a round")
+    check_live_launches("live", report["launches"], want)
+    roster = [f"site-{i}" for i in range(clients)]
+    if [r["clients"] for r in result["round_log"]] != [roster] * rounds or result["restarts"]:
+        fail(f"live: rounds {result['round_log']}, restarts {result['restarts']}")
+    final = result.pop("final_weights")
+    if len(final) != N_ITEMS or sum(w.numel() for w in final.values()) != LLAMA_PARAMS \
+            or not all(bool(torch.isfinite(w).all()) for w in final.values()):
+        fail("live: final weights are not 12 finite items of full-width llama3.2-1b")
+    release(torch)
+    t0 = time.perf_counter()
+    sim = run_job(spec, device=dev)
+    report["run_job_s"] = time.perf_counter() - t0
+    compare_weights(torch, "live vs run_job", final, sim["final_weights"])
+    report["run_job_round_wall_s"] = [r["wall_s"] for r in sim["round_log"]]
+    print(f"live: weights bitwise equal to run_job's ({report['run_job_s']:.3f} s, rounds "
+          f"{report['run_job_round_wall_s']})")
+    del final, sim
+    release(torch)
+    return report
+
+
+def run_chaos(torch, dev) -> dict:
+    """Phase B: ``examples/jobs/chaos_federation.json`` at full width,
+    clients cut 4 -> 2 (memory), rounds 3 -> 2 (time): site-1 behind its
+    own ChaosProxy with the spec's stall plan (8 s at 60,000 bytes up) against a grace of 5 s
+    and quorum 0.5. The launches follow from the server's grant log
+    (``repro_torch.testing.live_launches``): one B1 a grant (each grant
+    re-encodes the cached result), one B2 an item that reached a fold
+    (restarted folds included). The weights must be bitwise
+    ``reference_run`` over the recorded contributor sets
+    (``--verify-chaos``)."""
+    from repro_torch.launch.federation import reference_run
+    from repro_torch.testing import live_launches
+
+    spec = load_job(CHAOS_JOB, smoke=False, clients=LIVE_CLIENTS, rounds=CHAOS_ROUNDS)
+    plans = {name: plan for name, plan in spec["chaos"].items()
+             if int(name.split("-")[1]) < spec["clients"]}
+    result, report = run_live_path(torch, dev, "chaos", spec, proxied=plans)
+    log = result["uplink_log"]
+    check_live_launches("chaos", report["launches"], live_launches(spec, log))
+    if not result["faults"]["stragglers"].get("site-1") \
+            or not any("site-1" in r["stragglers"] for r in result["round_log"]):
+        fail(f"chaos: site-1's stall did not make it a straggler: {result['round_log']}, "
+             f"{result['faults']}")
+    final = result.pop("final_weights")
+    rosters = [r["clients"] for r in result["round_log"]]
+    release(torch)
+    t0 = time.perf_counter()
+    ref = reference_run({k: v for k, v in spec.items() if k != "chaos"}, rosters, device=dev)
+    report["reference_run_s"] = time.perf_counter() - t0
+    compare_weights(torch, "chaos vs reference_run", final, ref)
+    print(f"chaos: grants {[(e['round'], e['client'], e['outcome'], e['items']) for e in log]}; "
+          f"faults {result['faults']}; weights bitwise equal to reference_run over {rosters} "
+          f"({report['reference_run_s']:.3f} s)")
+    del final, ref
+    release(torch)
+    return report
+
+
+def run_federation_cli(args: list[str], label: str) -> dict:
+    """``python -m repro_torch.launch.federation ARGS --json``: its exit
+    code must be 0; returns its summary."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="live_cli_") as tmp:
+        out = os.path.join(tmp, "summary.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.federation", *args, "--json", out],
+            capture_output=True, text=True, timeout=LIVE_TIMEOUT_S, cwd=REPO,
+            env={**os.environ, "PYTHONPATH": os.path.join(REPO, "src")})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"{label}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as fh:
+            summary = json.load(fh)
+    if any(code != 0 for code in summary["client_exit_codes"]):
+        fail(f"{label}: client exit codes {summary['client_exit_codes']}")
+    print(f"{label}: exit 0 in {wall:.3f} s; rounds "
+          f"{[(r['clients'], r['stragglers']) for r in summary['round_log']]}; restarts "
+          f"{summary['restarts']}; faults {summary['faults']}")
+    return {"cli_wall_s": wall, **{k: summary[k] for k in (
+        "round_log", "restarts", "faults", "bytes_down", "bytes_up", "wall_s",
+        "resumed_from")}}
+
+
+def run_live_clis(torch, dev) -> dict:
+    """Phase C: both specs as they stand (smoke width, 4 clients) through
+    ``python -m repro_torch.launch.federation`` with subprocess clients on
+    the card — ``--verify-sim`` for live_smoke.json, ``--verify-chaos``
+    for chaos_federation.json (its three ChaosProxy plans) — and
+    live_smoke.json with fixed updates in this process, card vs CPU,
+    bitwise."""
+    from repro_torch.fl.job import initial_weights
+    from repro_torch.launch.federation import FederationClient, FederationServer
+    from repro_torch.testing import fixed_train_fn
+
+    release(torch)
+    out = {"live_smoke": run_federation_cli(["--spec", LIVE_JOB, "--verify-sim"],
+                                            "live_smoke.json --verify-sim"),
+           "chaos": run_federation_cli(["--spec", CHAOS_JOB, "--verify-chaos"],
+                                       "chaos_federation.json --verify-chaos")}
+    spec = load_job(LIVE_JOB)
+    init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+    finals = {}
+    for d in ("cpu", dev):
+        server = FederationServer(spec, round_timeout_s=LIVE_TIMEOUT_S, device=d).start()
+        try:
+            clients = []
+            for i in range(spec["clients"]):
+                clients.append(FederationClient.for_spec(spec, i, server.address,
+                                                         timeout_s=LIVE_TIMEOUT_S, device=d))
+                clients[-1].executor.train_fn = fixed_train_fn(init, i, 0.05 * (i + 1))
+            started = [client_threads(clients)]
+            finals[str(d)] = {k: v.cpu() for k, v in server.run(init).items()}
+            join_live_clients(started)
+        finally:
+            server.close()
+    compare_weights(torch, "live_smoke fixed updates, card vs CPU", finals[str(dev)],
+                    finals["cpu"])
+    print("live_smoke.json, fixed updates, in process: card weights bitwise the CPU's")
+    return out
+
+
+def check_checkpoints(torch, dev) -> dict:
+    """Phase D: full-width llama3.2-1b ``save_checkpoint`` with
+    ``fmt="blockwise8"`` (B1 an item) and ``fmt="nf4"`` (B4 an item),
+    ``iter_checkpoint`` back onto the card (B2 / B5 an item); the file
+    must be bitwise the one written on the CPU (plain versions) from the
+    same weights, and the loaded weights bitwise the CPU's load of it.
+    Then a server checkpoint and ``--resume`` at smoke width (2 clients):
+    round 0 checkpointed, then rounds 1.. resumed, ``--verify-sim``
+    against an uninterrupted ``run_job``."""
+    import filecmp
+    import tempfile
+
+    from repro_torch.checkpoint import iter_checkpoint, save_checkpoint
+    from repro_torch.fl.job import initial_weights
+    from repro_torch.kernels import ops
+
+    release(torch)
+    weights = initial_weights(load_job(LIVE_JOB, smoke=False), dev)
+    host = {k: v.cpu() for k, v in weights.items()}
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as tmp:
+        card_path, cpu_path = os.path.join(tmp, "card.ckpt"), os.path.join(tmp, "cpu.ckpt")
+        for fmt, quant, dequant in (("blockwise8", "quantize_blockwise8", "dequantize_blockwise8"),
+                                    ("nf4", "quantize_4bit", "dequantize_4bit")):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            nbytes = save_checkpoint(card_path, weights, fmt=fmt)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = dict(iter_checkpoint(card_path, dev))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            check_live_launches(f"checkpoint {fmt}", launches,
+                                {quant: N_ITEMS, dequant: N_ITEMS})
+            t0 = time.perf_counter()
+            save_checkpoint(cpu_path, host, fmt=fmt)
+            cpu_save_s = time.perf_counter() - t0
+            if not filecmp.cmp(card_path, cpu_path, shallow=False):
+                fail(f"checkpoint {fmt}: the card's file differs from the CPU's")
+            compare_weights(torch, f"checkpoint {fmt} load, card vs CPU",
+                            {k: v.cpu() for k, v in loaded.items()},
+                            dict(iter_checkpoint(cpu_path, "cpu")))
+            report[fmt] = {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                           "cpu_save_s": cpu_save_s, "launches": launches}
+            print(f"checkpoint {fmt}: {nbytes} bytes, card save {save_s:.3f} s, load "
+                  f"{load_s:.3f} s (CPU save {cpu_save_s:.3f} s); file bitwise the CPU's, "
+                  f"loads bitwise; launches {launches}")
+            del loaded
+        del weights, host
+        release(torch)
+        ckpt_dir = os.path.join(tmp, "rounds")
+        base = ["--spec", LIVE_JOB, "--clients", "2", "--checkpoint-dir", ckpt_dir]
+        run_federation_cli([*base, "--rounds", "1"], "live_smoke.json round 0, checkpointed")
+        report["resume"] = run_federation_cli([*base, "--resume", "--verify-sim"],
+                                              "live_smoke.json --resume --verify-sim")
+    if report["resume"]["resumed_from"] != 0:
+        fail(f"--resume restarted from {report['resume']['resumed_from']}, not round 0")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -2979,6 +3412,10 @@ def main(argv=None) -> int:
     serve_xlstm = run_serve_xlstm(torch, dev, label, batch, prompt, gen)
     xlstm_cpu = check_xlstm_serve_against_cpu(torch, dev)
     check_slstm_forward_only(torch, dev)
+    live = run_live(torch, dev)
+    chaos = run_chaos(torch, dev)
+    live_cli = run_live_clis(torch, dev)
+    checkpoints = check_checkpoints(torch, dev)
     rows["slstm_scan"] = {
         **{k: slstm["serve_xlstm"][k] for k in ("shape", "ms", "us_per_step", "plain_ms",
                                                  "library_ms", "bound_ms", "bound_by",
@@ -3000,7 +3437,8 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": paths[path]["launches"][name],
          "launches_async": async_run["launches"][name],
-         "launches_lora": lora["launches"][name], **rows[name]}
+         "launches_lora": lora["launches"][name],
+         "launches_live": live["launches"][name], **rows[name]}
         for name, (source, replaces, path) in KERNELS.items()
     ]
     if args.out:
@@ -3019,7 +3457,8 @@ def main(argv=None) -> int:
                        "table2": table2_rows, "table3": table3_rows,
                        "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
                        "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,
-                       "serve_xlstm_cpu_parity": xlstm_cpu},
+                       "serve_xlstm_cpu_parity": xlstm_cpu, "live": live,
+                       "chaos": chaos, "live_cli": live_cli, "checkpoints": checkpoints},
                       fh, indent=1)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,9 +44,11 @@ scales, or from ``weights=`` — e.g. the reference's own weights carried
 across with :func:`repro_torch.utils.trees.from_reference_state` — so both
 packages can start from the same numbers.
 
-Not ported yet (they raise): the live-plane keys (``quorum``,
-``checkpoint``, ``chaos``; ROADMAP A9) and ``kernel_backend`` (the port
-dispatches by device).
+The live plane's keys (``quorum``, ``straggler_grace_s``,
+``max_reconnects``, ``checkpoint``, ``chaos``) are read by
+:mod:`repro_torch.launch.federation`; ``run_job`` ignores them, as the
+reference's does. ``kernel_backend`` raises: the port dispatches by
+device.
 """
 from __future__ import annotations
 
@@ -115,11 +117,8 @@ DEFAULTS: dict[str, Any] = {
     "seed": 0,
 }
 
-#: spec keys whose features wait for a later slice, with the queue item
+#: spec keys the port refuses, with the reason
 _NOT_PORTED_KEYS = {
-    "quorum": "the live federation plane (ROADMAP A9)",
-    "checkpoint": "the live federation plane (ROADMAP A9)",
-    "chaos": "the live federation plane (ROADMAP A9)",
     "kernel_backend": "backend selection; the port dispatches by device",
 }
 
@@ -416,7 +415,7 @@ def initial_weights(spec: dict[str, Any], device: Any = None) -> dict[str, torch
     return flatten_state_dict(model.init(spec["seed"], device))
 
 
-def _disable_tf32() -> None:
+def disable_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -470,7 +469,7 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
     spec = normalize_spec(spec)
     device = resolve_device(device)
     if device.type == "cuda":
-        _disable_tf32()
+        disable_tf32()
     cfg = _model_config(spec)
     model = DecoderLM(cfg)
     datasets = _client_datasets(spec, cfg)
@@ -521,6 +520,11 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
 def run_job(spec: dict[str, Any], *, device: Any = None,
             weights: Optional[dict[str, Any]] = None) -> dict[str, Any]:
     return build_job(spec, device=device, weights=weights).run()
+
+
+def run_job_file(path: str, *, device: Any = None) -> dict[str, Any]:
+    with open(path) as fh:
+        return run_job(json.load(fh), device=device)
 
 
 def main(argv: Optional[list[str]] = None) -> int:

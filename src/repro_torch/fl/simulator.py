@@ -12,7 +12,7 @@ frame headers, envelopes and the transmitted header item included.
 
 Transmission is ``container`` (one item at a time; ``file`` payloads ride
 it too, as in the reference) or ``regular`` (the whole message as one
-blob), over any registered driver (``loopback``, ``spool``). The legacy
+blob), over any registered driver (``loopback``, ``spool``, ``tcp``). The legacy
 four-point ``Filter``/``FilterChain`` configuration
 (``server_filters=``/``client_filters=``) is adapted onto whole-message
 pipeline stages via :func:`~repro_torch.core.pipeline.legacy_wire_pipelines`.
@@ -26,7 +26,13 @@ Two runtimes drive the same proxies:
   run concurrently on a thread pool over the real transport, ordered by a
   deterministic simulated clock fed by actual wire bytes.
 
-Waiting for a later slice (ROADMAP A5): chunk fault injection.
+Chunk-level fault injection composes underneath: set
+``chunk_drop_prob``/``chunk_dup_prob``/``chunk_reorder_window`` on
+:class:`SimulationConfig` and every hop runs through
+:class:`~repro_torch.core.resilience.LossyDriver` +
+:class:`~repro_torch.core.resilience.ReliableTransfer`, seeded by the
+reference's string key (:meth:`_Wire._fault_key`), with retransmitted
+chunks counted into the wire bytes (and hence simulated time).
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import threading
 from collections.abc import Callable, Sequence
 from typing import Any, Optional, Union
 
+from repro_torch.core import resilience as rs
 from repro_torch.core import streaming as sm
 from repro_torch.core.filters import FilterChain, FilterPoint, no_filters
 from repro_torch.core.messages import Message
@@ -60,10 +67,26 @@ class SimulationConfig:
     chunk_size: int = sm.DEFAULT_CHUNK_SIZE
     driver: str = "loopback"            # any registered driver name
     spool_dir: Optional[str] = None     # the spool driver's directory
+    # chunk-level fault injection (loopback/spool drivers): every hop then
+    # runs LossyDriver + ReliableTransfer, and retransmitted chunks are
+    # counted into the wire bytes that drive simulated transfer time
+    chunk_drop_prob: float = 0.0
+    chunk_dup_prob: float = 0.0
+    chunk_reorder_window: int = 0
+    fault_seed: int = 0
+    max_repair_rounds: int = 40
 
     def __post_init__(self) -> None:
         if self.transmission not in ("regular", "container", "file"):
             raise ValueError(f"unknown transmission {self.transmission!r}")
+
+    @property
+    def faulty(self) -> bool:
+        return (
+            self.chunk_drop_prob > 0
+            or self.chunk_dup_prob > 0
+            or self.chunk_reorder_window > 0
+        )
 
 
 @dataclasses.dataclass
@@ -129,6 +152,12 @@ class _Wire:
     def __init__(self, cfg: SimulationConfig, stats: TrafficStats) -> None:
         self.cfg = cfg
         self.stats = stats
+        if cfg.faulty and cfg.driver == "tcp":
+            raise ValueError(
+                "chunk fault injection is not supported over the tcp driver "
+                "(its receiver thread stops at EOF, so gap repair cannot "
+                "complete); use loopback or spool"
+            )
 
     def _driver(self) -> sm.Driver:
         kwargs: dict[str, Any] = {}
@@ -137,6 +166,15 @@ class _Wire:
                 raise ValueError('the "spool" driver needs SimulationConfig.spool_dir')
             kwargs["spool_dir"] = self.cfg.spool_dir
         return sm.make_driver(self.cfg.driver, **kwargs)
+
+    def _fault_key(self, message: Message) -> str:
+        # stable across runs and thread interleavings: keyed by message
+        # identity, not by wall-clock send order (the reference's key)
+        h = message.headers
+        return (
+            f"wirefault:{self.cfg.fault_seed}:{h.get('client', '')}:"
+            f"{message.kind.value}:{h.get('round', h.get('model_version', ''))}"
+        )
 
     def transmit(
         self,
@@ -182,8 +220,18 @@ class _Wire:
         out of :class:`TrafficStats`. A legacy whole-message transform's
         payload is charged to the MemoryMeter for the duration of the
         transfer. ``lock`` serializes a stateful pipeline's transfer."""
-        driver = CountingDriver(self._driver())
-        regular = self.cfg.transmission == "regular"
+        cfg = self.cfg
+        base = self._driver()
+        if cfg.faulty:
+            base = rs.LossyDriver(
+                base,
+                drop_prob=cfg.chunk_drop_prob,
+                dup_prob=cfg.chunk_dup_prob,
+                reorder_window=cfg.chunk_reorder_window,
+                seed=self._fault_key(message),
+            )
+        driver = CountingDriver(base)
+        regular = cfg.transmission == "regular"
         decoder: Optional[Any] = None
         if count_only:
             recv: Any = _NullReceiver()
@@ -203,14 +251,32 @@ class _Wire:
             if held:
                 mem.record_alloc(held)
             try:
-                driver.connect(recv.on_chunk)
-                if regular:
-                    sm.ObjectStreamer(driver, self.cfg.chunk_size).send_blob(
-                        pipeline.encode_blob(msg, ctx))
+                if cfg.faulty:
+                    xfer = rs.ReliableTransfer(driver, cfg.chunk_size)
+                    if regular:
+                        ok = xfer.send_blob(pipeline.encode_blob(msg, ctx), recv,
+                                            max_rounds=cfg.max_repair_rounds)
+                    else:
+                        ok = xfer.send_items(pipeline.iter_encode_views(msg, ctx),
+                                             pipeline.n_items(msg), recv,
+                                             max_rounds=cfg.max_repair_rounds)
+                    retransmits = xfer.retransmits
+                    if not ok:
+                        raise RuntimeError(
+                            f"wire stream failed to complete within "
+                            f"{cfg.max_repair_rounds} repair rounds "
+                            f"(chunk_drop_prob={cfg.chunk_drop_prob})"
+                        )
                 else:
-                    sm.ContainerStreamer(driver, self.cfg.chunk_size).send_items(
-                        pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg))
-                driver.flush()  # no-op unless a spool driver is underneath
+                    retransmits = 0
+                    driver.connect(recv.on_chunk)
+                    if regular:
+                        sm.ObjectStreamer(driver, cfg.chunk_size).send_blob(
+                            pipeline.encode_blob(msg, ctx))
+                    else:
+                        sm.ContainerStreamer(driver, cfg.chunk_size).send_items(
+                            pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg))
+                    driver.flush()  # no-op unless a spool driver is underneath
                 driver.close()
             finally:
                 if held:
@@ -218,7 +284,7 @@ class _Wire:
             out = (decoder.finish(msg.kind, pipeline.unsent_headers(msg))
                    if decoder is not None else None)
         if record_stats:
-            self.stats.add(driver.bytes_sent, message.payload_bytes())
+            self.stats.add(driver.bytes_sent, message.payload_bytes(), retransmits)
         return out, driver.bytes_sent
 
 

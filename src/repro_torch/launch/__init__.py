@@ -1,1 +1,2 @@
-"""Entry points: ``serve`` (batched prefill + decode)."""
+"""Entry points: ``serve`` (batched prefill + decode), ``fl_train`` (the
+mesh-view trainer) and ``federation`` (the live plane over TCP)."""

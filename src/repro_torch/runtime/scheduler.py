@@ -30,8 +30,12 @@ retry or a CPU run.
 Fault injection: each dispatch attempt may drop out (seeded Bernoulli,
 ``dropout_prob``) partway through its round trip; the scheduler
 re-dispatches up to ``max_retries`` times, then reports the client as
-failed to the policy. (Chunk-level fault injection waits for
-``core/resilience.py``, ROADMAP A5.)
+failed to the policy. Chunk-level faults (``chunk_drop_prob``,
+``chunk_dup_prob``, ``chunk_reorder_window`` on the simulator's
+``SimulationConfig``) ride underneath: the proxies' transport runs every
+hop through :class:`~repro_torch.core.resilience.LossyDriver` and
+:class:`~repro_torch.core.resilience.ReliableTransfer`, and the
+retransmitted bytes feed the simulated clock.
 
 Client availability: an optional :class:`AvailabilityTrace` gives each
 client arrival/departure windows. A dispatch to an offline client is

@@ -149,6 +149,31 @@ def async_launches(spec: dict, names: list[str]) -> dict[str, int]:
             "dequantize_blockwise8": tasks * up.count("blockwise8")}
 
 
+def live_launches(spec: dict, uplink_log: list) -> dict[str, int]:
+    """The launches a live run implies (``launch/federation.py``), from
+    its spec and the server's grant log (``FederationServer.uplink_log``),
+    restarted folds and re-grants included. Each grant has the client
+    encode its cached round result once: one fused B1 group when the
+    uplink quantizes to blockwise8. Each item that reached a fold costs
+    the server one B3 when the aggregator folds wire form
+    (``quantized-fedavg``), else one B2 (dense ``fedavg`` decodes the
+    item first, as ``live_smoke.json`` and ``chaos_federation.json`` do:
+    neither names an aggregator). For specs whose downlink has no stage."""
+    from repro_torch.fl.aggregator import aggregator_consumes_wire
+    from repro_torch.fl.job import aggregator_spec
+
+    pipeline = spec.get("pipeline") or {}
+    if pipeline.get("task_data_out") or pipeline.get("task_data"):
+        raise ValueError("live_launches counts uplink kernels only; this spec's "
+                         "downlink has stages")
+    if "quantize:blockwise8" not in pipeline.get("task_result_out", []):
+        return {}
+    fold = ("dequant_accumulate8_into" if aggregator_consumes_wire(aggregator_spec(spec))
+            else "dequantize_blockwise8")
+    return {"quantize_blockwise8": sum(e["granted"] for e in uplink_log),
+            fold: sum(e["items"] for e in uplink_log)}
+
+
 def _uplink_stage(spec: dict, name: str):
     from repro_torch.core.pipeline import build_stage
 

@@ -20,6 +20,8 @@ Tolerances:
   ``2 k eps (|a| @ |b|) |s|`` of the reference's (the error of a
   length-k fp32 dot product summed in another order, eps = 2^-24).
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -51,6 +53,28 @@ from repro_torch.utils.mem import MemoryMeter  # noqa: E402
 from repro_torch.utils.trees import from_reference_items  # noqa: E402
 
 EPS = 2.0 ** -24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_per_pool():
+    """One thread in torch's intra-op pool and in scipy's OpenBLAS pool
+    (the reference's SVDs run there) for this file's tests. Two SVD
+    federations at once on a shared 8-core CPU host, each with a pool
+    per core, took 170-238 s each against 2.7-8.4 s alone.
+    The cap reaches OpenBLAS only once ``scipy.linalg`` has loaded it,
+    hence the import first. The arithmetic is the same either way."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        import scipy.linalg  # noqa: F401
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        limits = contextlib.nullcontext()
+    else:
+        limits = threadpool_limits(1)
+    with limits:
+        yield
+    torch.set_num_threads(before)
 
 
 def _pair(seed=0, m=40, n=24, rank=4, alpha=None):

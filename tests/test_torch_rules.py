@@ -9,6 +9,7 @@
 * Kernel wrappers have no ``try``/``except`` that could fall back from
   the card to the plain version.
 """
+import json
 import os
 import re
 import subprocess
@@ -16,6 +17,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -240,3 +242,60 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
     ops.reset_launch_counts()
     assert counts["quantize_blockwise8"] == 8000
     assert sum(counts.values()) == 8000
+
+
+LIVE_MODULES = ("repro_torch.launch.federation", "repro_torch.core.resilience",
+                "repro_torch.checkpoint", "repro_torch.checkpoint.streaming_ckpt")
+
+
+def test_live_plane_imports_with_jax_and_reference_blocked():
+    """The live plane, its transport and checkpoints, and its command
+    line (``--help``, as ``python -m`` runs it), in a fresh interpreter
+    whose import system refuses ``jax`` and ``repro``."""
+    code = textwrap.dedent("""
+        import importlib, runpy, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, sys.argv[1])
+        for mod in sys.argv[2:]:
+            importlib.import_module(mod)
+        sys.argv = ["repro_torch.launch.federation", "--help"]
+        try:
+            runpy.run_module("repro_torch.launch.federation", run_name="__main__")
+        except SystemExit as exc:
+            assert exc.code == 0, exc.code
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not leaked, leaked
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT / "src"), *LIVE_MODULES],
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_run_live_federation_without_device_raises_on_a_cpu_only_host(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the default would run there")
+    from repro_torch.checkpoint import iter_checkpoint, save_checkpoint
+    from repro_torch.launch import federation as fed
+    spec = {"arch": "llama3.2-1b", "smoke": True, "rounds": 1, "clients": 1}
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps(spec))
+    ckpt = tmp_path / "w.ckpt"
+    save_checkpoint(str(ckpt), {"w": np.zeros(4, np.float32)})
+    for call in (lambda: fed.run_live_federation(spec, spawn=False),
+                 lambda: fed.FederationServer(spec),
+                 lambda: fed.FederationClient.for_spec(spec, 0, ("127.0.0.1", 1)),
+                 lambda: fed.reference_run(spec, [["site-0"]]),
+                 lambda: fed.main(["--spec", str(path), "--no-spawn"]),
+                 lambda: list(iter_checkpoint(str(ckpt)))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -62,6 +62,18 @@ def _models(arch: str, window):
     return ref_model, ref_params, model, params
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread for this file's models. The suite runs
+    six workers on a shared CPU, and a pool per core in each
+    oversubscribes it (see ``tests/test_torch_slice_legacy.py``). The
+    checks compare logits and caches within their stated tolerances."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _prompts(vocab: int, length: int) -> np.ndarray:
     return np.random.default_rng(0).integers(0, vocab, (BATCH, length)).astype(np.int32)
 

@@ -50,6 +50,22 @@ SPEC = {
 ROUND2_OUTSIDE_ONE_STEP = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread for this file's federations. The suite
+    runs six workers on a shared CPU, and a pool per core in each
+    oversubscribes it: on an 8-core CPU host,
+    ``test_torch_slice_legacy.py`` beside the reference's
+    ``lora_federation.json`` job took 122.5 s and the job 115.2 s; with
+    this cap, 30.4 s and 33.3 s. No check depends on the
+    pool's size: fixed-update runs do no matrix products, and trained
+    runs are held to stated bounds."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def init_np():
     return {k: np.asarray(v) for k, v in ref_job.initial_weights(SPEC).items()}

@@ -41,6 +41,7 @@ torch), so factor bytes agree only numerically. What each side must give:
    (ROADMAP C9): the clients low-rank their full trained weights, and
    the iid partition gives them the same data (C7).
 """
+import contextlib
 import json
 from pathlib import Path
 
@@ -60,6 +61,28 @@ SPEC_PATH = ROOT / "examples" / "jobs" / "lora_federation.json"
 SPEC = json.loads(SPEC_PATH.read_text())
 
 LORA_TRAINED_TOL = 2e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread_per_pool():
+    """One thread in torch's intra-op pool and in scipy's OpenBLAS pool
+    (the reference's SVDs run there) for this file's tests. Two SVD
+    federations at once on a shared 8-core CPU host, each with a pool
+    per core, took 170-238 s each against 2.7-8.4 s alone.
+    The cap reaches OpenBLAS only once ``scipy.linalg`` has loaded it,
+    hence the import first. The arithmetic is the same either way."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        import scipy.linalg  # noqa: F401
+        from threadpoolctl import threadpool_limits
+    except ImportError:
+        limits = contextlib.nullcontext()
+    else:
+        limits = threadpool_limits(1)
+    with limits:
+        yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

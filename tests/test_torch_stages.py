@@ -177,8 +177,16 @@ WIRE_FIELDS = {"QuantizedTensor": ("payload", "absmax"), "SparseTensor": ("indic
                "LowRankDelta": ("a", "b")}
 
 
+def _package_stages(mod) -> tuple:
+    """The stages a package registers itself: other test files of this
+    worker may have added test stages to the reference's registry
+    (``tests/test_pipeline.py``, ``tests/test_wire_golden.py``)."""
+    return tuple(name for name in mod.registered_stages()
+                 if mod._STAGES[name].__module__.split(".")[0] in ("repro", "repro_torch"))
+
+
 def test_registered_stages_equal_the_references():
-    assert pl.registered_stages() == ref_pl.registered_stages()
+    assert _package_stages(pl) == _package_stages(ref_pl)
     assert pl.NOT_PORTED_STAGES == ()
     assert q.PORTED_FORMATS == q.FORMATS == ref_q.FORMATS
 

@@ -163,10 +163,12 @@ def test_spool_driver_replays_on_flush_like_loopback(mode, tmp_path):
 
 
 def test_driver_registry_after_this_slice():
-    assert {"loopback", "spool"} <= set(sm.registered_drivers())
+    assert {"loopback", "spool", "tcp"} <= set(sm.registered_drivers())
+    assert sm.NOT_PORTED_DRIVERS == ()
     sm.LoopbackDriver().flush()        # the base no-op
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sm.make_driver("tcp")
+    tcp = sm.make_driver("tcp")        # the TCP driver is ported now
+    assert isinstance(tcp, sm.TCPDriver)
+    tcp.close()
     with pytest.raises(TypeError):
         sm.make_driver("spool")        # needs a directory
     with pytest.raises(ValueError, match="unknown driver"):
