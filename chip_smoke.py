@@ -53,7 +53,8 @@ decomposes checked (the uplink encoded twice to the same bytes, canonical
 signs, the kept singular values against a float64 eigensolve of the
 item's Gram matrix, fidelity against the discarded singular mass, the
 SVD time of each); ``examples/jobs/lora_federation.json`` at full width
-(4 clients, 2 rounds, as it stands), the counters zeroed before and
+(4 clients, 2 rounds, as it stands) — both of these at 2 of the model's
+16 layers (``LORA_LAYERS``: time) — the counters zeroed before and
 checked after (one B4 and one B5 a leftover item an uplink, nothing
 else), with the factor bytes the shapes imply and the merge time of each
 item, then B4 and B5 bitwise against their plain versions on the very
@@ -79,6 +80,20 @@ long-context variant (``sliding_window`` 4096) at batch 1, prompt 8192 —
 each with the counters zeroed before and exactly one flash launch per
 layer of the prefill after; smoke-width serving on the card against the
 CPU; and a backward through the kernel, which must raise.
+
+Then every other model family through ``launch.serve.generate`` at full
+width with seeded weights: recurrentgemma-2b (RG-LRU hybrid, uncut: batch
+1, prompt 4096, 8 local-attention layers at hd 256), phi-3-vision-4.2b
+(uncut: 576 zero patches + 64 tokens at batch 2, hd 96), whisper-small
+(uncut: 1,500 zero frames, batch 4 x 128), dbrx-132b (MoE at its full
+widths, 2 of its 40 layers: batch 1 x 512) and granite-8b (uncut: batch
+4 x 512), each with the counters zeroed before and exactly its B7
+launches after (8 / 32 / 12 / 2 / 36), finite logits and caches, the
+spans and the device peak; B7 is held against its plain version and
+timed at each run's prefill shape (the build's ptxas lines give each
+instantiation's registers and spills); then the
+eight new architectures (and recurrentgemma-2b at 5 layers) at smoke
+width card vs CPU.
 
 Then the mesh-view federated trainer (``repro_torch.launch.fl_train``): the
 K-way dequantize-and-sum kernel against its plain version on every case of
@@ -240,6 +255,49 @@ SERVE_RUNS = (("serve_full", None, 4, 512, 16), ("serve_window", 4096, 1, 8192, 
 #: card (kernel) vs CPU (plain) serving at smoke width: logits and caches
 #: within 1e-4 (fp32 matrix products and attention summed in other orders)
 SERVE_CPU_TOL = 1e-4
+#: the serving runs of the other families, full width with seeded weights:
+#: (label, arch, batch, prompt, generated tokens, layers or None for the
+#: published depth, the B7 launches of its prefill: one per attention layer
+#: whose prefill length is a multiple of 128). recurrentgemma-2b: 8 local-
+#: attention layers of its 26 (window 2048, hd 256, MQA); phi-3-vision: 576
+#: zero patches + 64 tokens = 640 rows, hd 96; whisper-small: the decoder's
+#: 12 self-attention layers (the encoder's 1,500 frames take the masked
+#: softmax); dbrx-132b at its full widths but 2 of its 40 layers (the whole
+#: model is 526 GB in fp32, 2 layers about 30 GB); granite-8b uncut (~33 GB)
+FAMILY_SERVE_RUNS = (
+    ("serve_griffin", "recurrentgemma-2b", 1, 4096, 16, None, 8),
+    ("serve_vlm", "phi-3-vision-4.2b", 2, 64, 16, None, 32),
+    ("serve_encdec", "whisper-small", 4, 128, 16, None, 12),
+    ("serve_moe", "dbrx-132b", 1, 512, 8, 2, 2),
+    ("serve_dense8b", "granite-8b", 4, 512, 16, None, 36),
+)
+#: the architectures of the last six families, served at smoke width card vs CPU
+#: (recurrentgemma-2b also at 5 layers, so that its tail runs), at a
+#: prefill of 128 rows (through the kernel on the card), 8 generated tokens
+NEW_ARCHS = ("stablelm-1.6b", "dbrx-132b", "whisper-small", "llama4-scout-17b-a16e",
+             "recurrentgemma-2b", "granite-8b", "phi-3-vision-4.2b", "qwen2.5-32b")
+FAMILY_SMOKE = (*((a, a, {}) for a in NEW_ARCHS),
+                ("recurrentgemma-2b-tail", "recurrentgemma-2b", {"num_layers": 5}))
+FAMILY_CPU_ROWS = 128
+#: card vs CPU at smoke width for those: logits and caches within 1e-5 *
+#: (1 + |want|), the CPU parity tests' tolerance (tests/test_torch_families.py)
+FAMILY_CPU_TOL = 1e-5
+#: B7 at each family serving run's prefill shape: (label, B, H, KV, S, hd,
+#: window), all causal — recurrentgemma-2b's local attention (MQA, hd 256),
+#: phi-3-vision's prefill (hd 96), whisper-small's decoder self-attention,
+#: dbrx-132b's (GQA group 6) and granite-8b's (group 4, hd 128)
+FAMILY_FLASH_SHAPES = (("serve_griffin", 1, 10, 1, 4096, 256, 2048),
+                       ("serve_vlm", 2, 32, 32, 640, 96, None),
+                       ("serve_encdec", 4, 12, 12, 128, 64, None),
+                       ("serve_moe", 1, 48, 8, 512, 128, None),
+                       ("serve_dense8b", 4, 32, 8, 512, 128, None))
+#: the lora path's depth: llama3.2-1b's 16 layers cut to 2 (time: at full
+#: depth cuSOLVER's SVDs of the (32768, 8192) w_gate / w_up items took 65-70 %
+#: of a 213-227 s phase; at 4 layers their (8192, 8192) items still took
+#: 6.2 s each and the phases 187 s; at 2 they are (4096, 8192)). Below 9
+#: layers the stacked (layers, 2048) attn_norm / mlp_norm items are too
+#: small for rank-8 factors to pay and go to nf4 as leftovers
+LORA_LAYERS = 2
 
 #: the federated trainer's runs: full-width qwen1.5-0.5b (fl_train's own
 #: default arch), 2 pods on one card over gloo, the reference's defaults of
@@ -334,11 +392,19 @@ def bound(nbytes: float, ops: float, rate: float = FP32_OPS_PER_S) -> tuple[floa
 
 def flash_tensor_ops(hd: int, pairs: int, bf16_rate: float = BF16_OPS_PER_S,
                      tf32_rate: float = TF32_OPS_PER_S) -> float:
-    """The flash kernel's tensor-core arithmetic on fp32 inputs as tf32
-    operations (to divide by the tf32 rate): per visible pair, 4 * hd of
-    the tf32 hi products (q k and p v) and 8 * hd of the bf16 product that
-    holds both small ones (twice the depth), counted at the bf16 rate."""
+    """fp32 attention's tensor-core arithmetic as tf32 operations (to
+    divide by the tf32 rate), at every head dim: per visible pair, 4 * hd
+    of tf32 hi products (q k and p v) and 8 * hd of the bf16 product that
+    holds both small ones (twice the depth), counted at the bf16 rate —
+    the least split that keeps fp32 accuracy, which ``flash_fwd_kernel``
+    runs."""
     return 4 * hd * pairs + 8 * hd * pairs * tf32_rate / bf16_rate
+
+
+def wide_tensor_ops(hd: int, pairs: int) -> float:
+    """``flash_wide_kernel``'s own arithmetic, as implemented: each of the
+    two products three tf32 products, 12 * hd tf32 operations a pair."""
+    return 12 * hd * pairs
 
 
 #: a tf32 m16n8k8 and a bf16 m16n8k16 mma.sync in a loop, 8 independent
@@ -444,17 +510,19 @@ def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
 
 
 def check_sass(lib_path: str) -> dict[str, dict[str, int]]:
-    """The flash kernels run tf32 (and, on fp32 inputs, bf16) mma.sync with
-    cp.async copies; the sLSTM kernels meet at a cluster barrier."""
+    """The flash kernels run tf32 (and, at hd 64 and 128 on fp32 inputs,
+    bf16) mma.sync with cp.async copies — the wide kernel (hd 96, 256)
+    tf32 only; the sLSTM kernels meet at a cluster barrier."""
     counts = sass_counts(lib_path)
-    flash = {k: v for k, v in counts.items() if "flash_fwd_kernel" in k}
+    flash = {k: v for k, v in counts.items()
+             if "flash_fwd_kernel" in k or "flash_wide_kernel" in k}
     scan = {k: v for k, v in counts.items() if "slstm_cluster_kernel" in k}
-    if len(flash) != 4 or len(scan) != 2:
-        fail(f"SASS: {len(flash)} flash and {len(scan)} sLSTM kernels, expected 4 and 2")
+    if len(flash) != 8 or len(scan) != 2:
+        fail(f"SASS: {len(flash)} flash and {len(scan)} sLSTM kernels, expected 8 and 2")
     for name, c in flash.items():
-        fp32 = "flash_fwd_kernelIf" in name
+        bf16_split = "flash_fwd_kernelIf" in name
         if not (c["HMMA.1688.F32.TF32"] and c["LDGSTS"]
-                and (c["HMMA.16816.F32.BF16"] > 0) == fp32):
+                and (c["HMMA.16816.F32.BF16"] > 0) == bf16_split):
             fail(f"SASS of {name}: {c}")
     for name, c in scan.items():
         if not c["UCGABAR"]:
@@ -1505,10 +1573,12 @@ def check_secure_agg_against_cpu(torch, dev) -> dict:
     return {"values": n, "clients": len(clients)}
 
 
-def lora_spec() -> dict:
-    """``examples/jobs/lora_federation.json`` at full width."""
+def lora_spec(layers: int | None = None) -> dict:
+    """``examples/jobs/lora_federation.json`` at full width; at ``layers``
+    of the model's layers (the job spec's ``num_layers``) when given."""
     with open(LORA_JOB) as fh:
-        return {**json.load(fh), "smoke": False}
+        spec = {**json.load(fh), "smoke": False}
+    return spec if layers is None else {**spec, "num_layers": layers}
 
 
 def time_svd_drivers(torch, dev) -> dict:
@@ -1582,7 +1652,7 @@ def check_lora_items(torch, dev) -> dict:
     from repro_torch.utils.trees import as_tensor
 
     release(torch)
-    spec = lora_spec()
+    spec = lora_spec(LORA_LAYERS)
     state = initial_weights(spec, device=dev)
     stack = spec["pipeline"]["task_result_out"]
 
@@ -1805,7 +1875,7 @@ def run_lora(torch, dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.testing import lora_factor_bytes, lora_launches
 
-    spec = lora_spec()
+    spec = lora_spec(LORA_LAYERS)
     uplinks = spec["clients"] * spec["rounds"]
     torch.cuda.synchronize()
     release(torch)
@@ -2165,16 +2235,21 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
     """The flash-attention kernel against its plain version on the card:
     every case of ``kernels.cases.ATTENTION_CASES``, then the two serving
     shapes of llama3.2-1b (32 heads, 8 KV heads, hd 64) — batch 4 x 512
-    causal, and batch 1 x 8192 causal with the 4096 window — each within
-    ``kernels.cases.ATTENTION_TOL``. At the serving shapes it times the
+    causal, and batch 1 x 8192 causal with the 4096 window — and each
+    family serving run's prefill shape (:data:`FAMILY_FLASH_SHAPES`:
+    recurrentgemma-2b at hd 256, MQA, window 2048; phi-3-vision at hd 96;
+    whisper-small's decoder; dbrx-132b at GQA group 6; granite-8b), each
+    within ``kernels.cases.ATTENTION_TOL``. At the serving shapes it times the
     kernel, the plain version and PyTorch's ``scaled_dot_product_attention``
     (``enable_gqa``; ``is_causal``, or a boolean mask for the window), which
     the port never calls. Two bounds, each the larger of its operations and
     the bytes of q, k, v and the output: the fp32 one (4 * hd fp32
     operations per visible pair at the CUDA cores' fp32 peak) and the
-    kernel's own (its tf32 and bf16 tensor-core products at their published
-    peaks, :func:`flash_tensor_ops`), which is the row's bound; and the
-    kernel's products at the mma.sync ``rates`` measured here."""
+    tensor-core one (tf32 and bf16 products at their published peaks,
+    :func:`flash_tensor_ops`, at every head dim), which is the row's bound;
+    the same products at the mma.sync ``rates`` measured here; and, at the
+    wide head dims, the wide kernel's own three tf32 products
+    (:func:`wide_tensor_ops`) at the published tf32 peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -2184,7 +2259,7 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
         attention_case,
         attention_inputs,
     )
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import WIDE_HEAD_DIMS, flash_attention
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for name in sorted(ATTENTION_CASES):
@@ -2202,8 +2277,8 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
           f"cases: max |err| fp32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
 
     shapes = {}
-    for label, window, B, S, _gen in SERVE_RUNS:
-        H, KV, hd = 32, 8, 64
+    runs = [(label, B, 32, 8, S, 64, window) for label, window, B, S, _gen in SERVE_RUNS]
+    for label, B, H, KV, S, hd, window in runs + list(FAMILY_FLASH_SHAPES):
         q, k, v = flash_inputs(torch, dev, B, H, KV, S, hd, seed=S)
         out = flash_attention(q, k, v, causal=True, window=window)
         want = ref.attention(q, k, v, causal=True, window=window)
@@ -2229,6 +2304,8 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
         bound_ms, bound_by = bound(nbytes, flash_tensor_ops(hd, pairs), TF32_OPS_PER_S)
         mma_ms, _ = bound(nbytes, flash_tensor_ops(hd, pairs, 1e12 * rates["bf16"],
                                                    1e12 * rates["tf32"]), 1e12 * rates["tf32"])
+        wide = hd in WIDE_HEAD_DIMS
+        impl_ms = bound(nbytes, wide_tensor_ops(hd, pairs), TF32_OPS_PER_S)[0] if wide else None
         ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
         plain_ms = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, window=window),
                            reps=5, warmup=1, batch=1)
@@ -2239,13 +2316,16 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "bound_fp32_ms": fp32_ms,
                          "bound_fp32_by": fp32_by, "bound_mma_sync_ms": mma_ms,
+                         "bound_as_implemented_ms": impl_ms,
                          "fp32_tflops": 4 * hd * pairs / ms / 1e9, "max_abs_err": err}
+        impl = (f"; the wide kernel's three tf32 products a product at the tf32 peak "
+                f"{impl_ms:.4f} ms ({100 * impl_ms / ms:.1f}%)" if wide else "")
         print(f"flash_attention ({label} shape {B}x{H}x{S}x{hd}, KV {KV}, window {window}): "
               f"{ms:.4f} ms ({4 * hd * pairs / ms / 1e9:.1f} TFLOP/s of fp32 work); bound "
               f"{bound_ms:.4f} ms by {bound_by} (tf32 + bf16 tensor-core products at their "
               f"peaks; {100 * bound_ms / ms:.1f}% of it), fp32 bound {fp32_ms:.4f} ms by "
               f"{fp32_by} ({100 * fp32_ms / ms:.1f}%), at the measured mma.sync rates "
-              f"{mma_ms:.4f} ms ({100 * mma_ms / ms:.1f}%); plain {plain_ms:.4f} ms, "
+              f"{mma_ms:.4f} ms ({100 * mma_ms / ms:.1f}%){impl}; plain {plain_ms:.4f} ms, "
               f"SDPA {lib_ms:.4f} ms, max |err| {err:.3g}")
         del q, k, v
         release(torch)
@@ -2436,6 +2516,175 @@ def check_forward_only(torch, dev) -> None:
         print(f"flash kernel backward raises NotImplementedError: {exc}")
     else:
         fail("a backward through the flash kernel did not raise")
+
+
+def family_extra(torch, cfg, batch: int, device, rng=None):
+    """``generate``'s ``extra`` for an enc-dec (frames) or a VLM (patches):
+    zeros as the reference's ``main`` gives them, or standard normal from
+    ``rng``; None for every other family."""
+    n = {"encdec": cfg.encoder_seq, "vlm": cfg.num_patches}.get(cfg.family)
+    if n is None:
+        return None
+    shape = (batch, n, cfg.d_model)
+    value = (torch.zeros(shape) if rng is None
+             else torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+    return {"frames" if cfg.family == "encdec" else "patches": value.to(device)}
+
+
+def attention_layers(model) -> int:
+    """The layers whose prefill routes full-sequence causal attention
+    through ``sdpa_or_flash``: the hybrid's attention layers, every other
+    decoder's layers (an enc-dec's encoder takes the masked softmax at any
+    length only because its frames are no multiple of 128)."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        return (model.n_super * cfg.block_pattern.count("attn")
+                + model.tail_pattern.count("attn"))
+    return cfg.num_layers
+
+
+def run_family_serve(torch, dev, label: str, arch: str, batch: int, prompt: int, gen: int,
+                     layers, flash_launches: int) -> dict:
+    """One full-width serving run of ``arch`` (``layers`` cuts the depth)
+    with seeded weights through ``generate`` (zero frames or patches for
+    the enc-dec and the VLM), with the launch counters zeroed just before
+    and read just after: exactly ``flash_launches`` B7 launches and none
+    of any other kernel. Then the prefill's logits and cache must be
+    finite and the tokens extend the prompts within the vocabulary; the
+    spans give prefill, replay and decode walls, and the device peak is
+    ``max_memory_allocated``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.utils.trees import flatten_state_dict
+
+    cfg = get_config(arch).with_overrides(remat=False)
+    if layers is not None:
+        cfg = cfg.with_overrides(num_layers=layers)
+    model = create_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(math.prod(s) for s in model.param_shapes().values())
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(dev)
+    extra = family_extra(torch, cfg, batch, dev)
+    torch.cuda.synchronize()
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    tracer = obs_trace.Tracer(sync=torch.cuda.synchronize)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with obs_trace.activate(tracer):
+        tokens = generate(model, params, prompts, gen_len=gen, extra=extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = flash_launches
+    print(f"{label} launches: {launches} (expected {want})")
+    if launches != want:
+        fail(f"kernel launches on the {label} path {launches} != {want}")
+    if tuple(tokens.shape) != (batch, prompt + gen) or tokens.dtype != torch.int32:
+        fail(f"{label}: tokens {tuple(tokens.shape)} {tokens.dtype}, expected "
+             f"({batch}, {prompt + gen}) int32")
+    if not (torch.equal(tokens[:, :prompt], prompts) and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size):
+        fail(f"{label}: tokens do not extend the prompts within the vocabulary")
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, prompts, *(extra or {}).values())
+    leaves = list(flatten_state_dict(cache).values())
+    if not (tuple(logits.shape) == (batch, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())
+            and all(bool(torch.isfinite(t.float()).all()) for t in leaves)):
+        fail(f"{label}: prefill logits {tuple(logits.shape)} or cache not finite")
+    del logits, cache, leaves
+    phases = serve_phases(tracer.chrome_trace()["traceEvents"])
+    report = {"arch": arch, "layers": cfg.num_layers, "params": n_params, "batch": batch,
+              "prompt": prompt, "gen": gen, "extra": None if extra is None else list(extra),
+              "init_s": init_s, "wall_s": wall, **phases,
+              "decode_ms_per_token": 1e3 * phases["decode_s"] / max(gen - 1, 1),
+              "tokens_per_s": batch * gen / wall, "launches": launches,
+              "max_memory_allocated_bytes": peak, "allocated_before_bytes": allocated_before,
+              "last_tokens": tokens[0, -gen:].tolist()}
+    replay = (f"replay {phases['replay_s']:.4f} s, " if phases["replay_s"] else "")
+    print(f"{label}: {arch} ({cfg.num_layers} layers, {n_params} params, init {init_s:.2f} s), "
+          f"batch {batch}, prompt {prompt}{'' if extra is None else ' + ' + str(list(extra))}, "
+          f"gen {gen}: wall {wall:.3f} s, prefill {phases['prefill_s']:.4f} s, {replay}decode "
+          f"{report['decode_ms_per_token']:.3f} ms/token; max_memory_allocated {peak} bytes "
+          f"({allocated_before} before)")
+    print(f"{label} tokens[0, -{gen}:]: {report['last_tokens']}")
+    del model, params, prompts, tokens, extra
+    release(torch)
+    return report
+
+
+def check_family_serve_against_cpu(torch, dev) -> dict:
+    """Every architecture of :data:`FAMILY_SMOKE` at smoke width, served
+    with the same seeded weights on the card (each attention prefill of
+    :data:`FAMILY_CPU_ROWS` rows through the kernel) and on the CPU (the
+    masked softmax), with random frames / patches from a seed: prefill
+    logits and every cache leaf within :data:`FAMILY_CPU_TOL` * (1 +
+    |want|), greedy tokens equal, and B7 launched once per attention
+    layer per prefill on the card (two: the check's and ``generate``'s)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.utils.trees import flatten_state_dict, unflatten_state_dict
+
+    report = {}
+    for label, arch, over in FAMILY_SMOKE:
+        cfg = get_smoke_config(arch).with_overrides(remat=False, **over)
+        model = create_model(cfg)
+        cpu_params = model.init(0, "cpu")
+        card_params = unflatten_state_dict(
+            {k: v.to(dev) for k, v in flatten_state_dict(cpu_params).items()})
+        rng = np.random.default_rng(2)
+        prompt = FAMILY_CPU_ROWS - (cfg.num_patches if cfg.family == "vlm" else 0)
+        prompts = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, prompt)).astype(np.int32))
+        extra = family_extra(torch, cfg, 2, "cpu", rng)
+        outs = {}
+        ops.reset_launch_counts()
+        for where, d, params in (("cpu", "cpu", cpu_params), ("card", dev, card_params)):
+            ex = None if extra is None else {k: v.to(d) for k, v in extra.items()}
+            with torch.inference_mode():
+                logits, cache = model.prefill(params, prompts.to(d), *(ex or {}).values())
+            tokens = generate(model, params, prompts.to(d), gen_len=8, extra=ex)
+            outs[where] = (logits.cpu(), {k: v.cpu() for k, v in
+                                          flatten_state_dict(cache).items()}, tokens.cpu())
+        launches = ops.launch_counts()
+        want = {name: 0 for name in launches}
+        want["flash_attention"] = 2 * attention_layers(model)
+        if launches != want:
+            fail(f"smoke {label} on the card: launches {launches} != {want}")
+        err = 0.0
+        pairs = [("logits", outs["card"][0], outs["cpu"][0])] + [
+            (k, outs["card"][1][k], outs["cpu"][1][k]) for k in outs["cpu"][1]]
+        for name, got, want_t in pairs:
+            got, want_t = got.float(), want_t.float()
+            diff = (got - want_t).abs()
+            if not bool((diff <= FAMILY_CPU_TOL * (1 + want_t.abs())).all()):
+                fail(f"smoke {label}: card and CPU {name} differ by {float(diff.max()):.3g}")
+            err = max(err, float(diff.max()))
+        if not torch.equal(outs["card"][2], outs["cpu"][2]):
+            fail(f"smoke {label}: greedy tokens differ between card and CPU")
+        report[label] = {"max_abs_err": err, "flash_launches": launches["flash_attention"],
+                         "tokens": outs["cpu"][2][0, -8:].tolist()}
+        print(f"smoke {label} card vs CPU, {prompt} tokens"
+              f"{'' if extra is None else ' + ' + str(list(extra))}: prefill logits and "
+              f"{len(outs['cpu'][1])} cache leaves within {err:.3g}, greedy tokens equal "
+              f"({report[label]['tokens']}), B7 x{launches['flash_attention']}")
+        del model, cpu_params, card_params, outs
+        release(torch)
+    return report
 
 
 def slstm_bound(B: int, S: int, H: int, hd: int, gx_bytes: int = 4) -> tuple[float, str]:
@@ -3391,8 +3640,12 @@ def main(argv=None) -> int:
     parity_async = check_async_against_cpu(torch, dev)
     secure_agg = check_secure_agg_against_cpu(torch, dev)
     svd = time_svd_drivers(torch, dev) if args.svd_drivers else None
+    t_lora = time.perf_counter()
     lora_items = check_lora_items(torch, dev)
     lora = run_lora(torch, dev)
+    lora["phases_wall_s"] = time.perf_counter() - t_lora
+    print(f"lora phases at {LORA_LAYERS} of llama3.2-1b's 16 layers (items check and round): "
+          f"{lora['phases_wall_s']:.3f} s")
     parity_lora = check_lora_against_cpu(torch, dev)
     topk_bf16 = check_topk_bf16(torch, dev)
     table2_rows, bw8_message = table2(torch, dev)
@@ -3404,6 +3657,10 @@ def main(argv=None) -> int:
              for label, window, batch, prompt, gen in SERVE_RUNS}
     serve_cpu = check_serve_against_cpu(torch, dev)
     check_forward_only(torch, dev)
+    family = {label: run_family_serve(torch, dev, label, arch, batch, prompt, gen, layers,
+                                      flash_n)
+              for label, arch, batch, prompt, gen, layers, flash_n in FAMILY_SERVE_RUNS}
+    family_cpu = check_family_serve_against_cpu(torch, dev)
     agg = check_agg_kernel(torch, dev)
     fl = run_fl_train(torch, agg["flat_elements"])
 
@@ -3429,6 +3686,8 @@ def main(argv=None) -> int:
                                                 "fp32_tflops", "max_abs_err")},
         "windowed": {**windowed, "launches": serve["serve_window"]["launches"]
                      ["flash_attention"]},
+        "families": {label: {**flash[label], "launches": family[label]["launches"]
+                             ["flash_attention"]} for label, *_ in FAMILY_FLASH_SHAPES},
         "cases_max_abs_err": flash["cases_max_abs_err"]}
 
     paths = {"blockwise8": bw8, "nf4": nf4, **serve, "fl_int8": fl["fl_int8"],
@@ -3438,7 +3697,9 @@ def main(argv=None) -> int:
          "launches": paths[path]["launches"][name],
          "launches_async": async_run["launches"][name],
          "launches_lora": lora["launches"][name],
-         "launches_live": live["launches"][name], **rows[name]}
+         "launches_live": live["launches"][name],
+         "launches_families": {label: r["launches"][name] for label, r in family.items()},
+         **rows[name]}
         for name, (source, replaces, path) in KERNELS.items()
     ]
     if args.out:
@@ -3455,7 +3716,9 @@ def main(argv=None) -> int:
                        "lora_items": lora_items, "lora": lora,
                        "cpu_parity_lora": parity_lora, "topk_bf16": topk_bf16,
                        "table2": table2_rows, "table3": table3_rows,
-                       "flash": flash, "serve": serve, "serve_cpu_parity": serve_cpu,
+                       "flash": flash, "serve": serve,
+                       "serve_cpu_parity": serve_cpu, "family_serve": family,
+                       "family_cpu_parity": family_cpu,
                        "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,
                        "serve_xlstm_cpu_parity": xlstm_cpu, "live": live,
                        "chaos": chaos, "live_cli": live_cli, "checkpoints": checkpoints},

@@ -1,10 +1,9 @@
 """Architecture config registry.
 
-Mirror of ``src/repro/configs/base.py`` for the architectures the port
-builds so far (the dense decoder family and the xLSTM of family
-``ssm``). Each module defines ``CONFIG``
-(the full-scale spec, citing its source) and ``SMOKE_OVERRIDES`` (the
-reduced variant the CPU tests use).
+Mirror of ``src/repro/configs/base.py``: every assigned architecture, in
+the reference's order. Each module defines ``CONFIG`` (the full-scale
+spec, citing its source) and ``SMOKE_OVERRIDES`` (the reduced variant the
+CPU tests use).
 """
 from __future__ import annotations
 
@@ -14,7 +13,15 @@ from repro_torch.models.base import ModelConfig
 
 ARCH_IDS: list[str] = [
     "xlstm-125m",
+    "stablelm-1.6b",
+    "dbrx-132b",
+    "whisper-small",
+    "llama4-scout-17b-a16e",
     "qwen1.5-0.5b",
+    "recurrentgemma-2b",
+    "granite-8b",
+    "phi-3-vision-4.2b",
+    "qwen2.5-32b",
     # the paper's own experiment model
     "llama3.2-1b",
 ]
@@ -24,7 +31,7 @@ _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _MOD:
-        raise KeyError(f"unknown or not yet ported arch {arch_id!r}; valid: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; valid: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MOD[arch_id]}")
     return mod.CONFIG
 

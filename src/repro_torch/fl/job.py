@@ -49,6 +49,11 @@ The live plane's keys (``quorum``, ``straggler_grace_s``,
 :mod:`repro_torch.launch.federation`; ``run_job`` ignores them, as the
 reference's does. ``kernel_backend`` raises: the port dispatches by
 device.
+
+One key is the port's own: ``"num_layers"`` builds the spec's model at
+that depth (its widths unchanged) — a full-width model cut to fit a run
+on one card. Left out (or ``None``), the model has its published depth,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -349,7 +354,9 @@ def _client_datasets(spec: dict[str, Any], cfg: Any) -> list[Any]:
 
 
 def _model_config(spec: dict[str, Any]) -> Any:
-    return get_smoke_config(spec["arch"]) if spec["smoke"] else get_config(spec["arch"])
+    cfg = get_smoke_config(spec["arch"]) if spec["smoke"] else get_config(spec["arch"])
+    layers = spec.get("num_layers")
+    return cfg if layers is None else cfg.with_overrides(num_layers=int(layers))
 
 
 def _train_executor(

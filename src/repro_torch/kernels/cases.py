@@ -204,11 +204,27 @@ ATTENTION_CASES: dict[str, tuple] = {
     "window100_sq320": (1, 4, 2, 320, 320, 64, "float32", True, 100),
     # bf16 at hd 128 without a window (its kernel keeps Q whole in registers)
     "bf16_hd128": (1, 4, 2, 256, 256, 128, "bfloat16", True, None),
+    # the wide head dims: phi-3-vision's 96 (MHA) and recurrentgemma's 256
+    # (MQA, a window narrower than the sequence)
+    "hd96": (2, 4, 4, 256, 256, 96, "float32", True, None),
+    "hd256_mqa_window": (1, 4, 1, 256, 256, 256, "float32", True, 64),
+    "hd256_non_causal": (1, 2, 1, 128, 128, 256, "float32", False, None),
+    "hd256_cross_lengths": (1, 2, 1, 64, 256, 256, "float32", False, None),
+    "bf16_hd96": (1, 4, 4, 128, 128, 96, "bfloat16", True, None),
+    "bf16_hd256": (1, 4, 1, 256, 256, 256, "bfloat16", True, 64),
+    # ragged lengths at both wide head dims; at hd 256 Sq > Sk, and the rows
+    # past Sk + window - 1 see no key
+    "hd96_ragged": (1, 2, 1, 200, 200, 96, "float32", True, 48),
+    "hd256_ragged_blind": (1, 2, 1, 136, 72, 256, "float32", True, 32),
+    # six query heads a KV head at hd 128, as dbrx-132b's 48 over 8
+    "group6_hd128": (1, 12, 2, 128, 128, 128, "float32", True, None),
 }
 #: the order that seeds each attention case's inputs: the first cases by
 #: name, then the later ones as they were added, so that adding a case
 #: leaves the inputs of the others as they were
-_ATTENTION_ADDED = ("window100_sq320", "bf16_hd128")
+_ATTENTION_ADDED = ("window100_sq320", "bf16_hd128", "hd96", "hd256_mqa_window",
+                    "hd256_non_causal", "hd256_cross_lengths", "bf16_hd96", "bf16_hd256",
+                    "hd96_ragged", "hd256_ragged_blind", "group6_hd128")
 ATTENTION_SEED_ORDER = (*sorted(set(ATTENTION_CASES) - set(_ATTENTION_ADDED)),
                         *_ATTENTION_ADDED)
 

@@ -660,21 +660,323 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide head dims (96 and 256): a second, simpler kernel.
+//
+// The design above does not stretch to them. At hd 256 its five stage-sized
+// buffers take ~335 KB of shared memory, and a thread would hold Q (128
+// registers) beside its accumulators (128); at hd 96 its chunk split does not
+// divide. So these head dims take their own kernel, simple first:
+//   * One CTA of 4 warps per (query head, batch row, tile of 64 query rows),
+//     tiles reversed as above; warp w owns rows 16 w .. 16 w + 15.
+//   * Q, scaled by 1/sqrt(hd) (fp32) or widened (bf16), is staged once in
+//     shared memory at row stride hd + 4 and read back as A fragments at each
+//     k-step: only the accumulators (hd / 2 a thread) live in registers.
+//   * K/V tiles of 32 keys (16 for bf16 at hd 256), double-buffered with cp.async (16-byte, .cg; rows
+//     past Sk zero-filled), raw in shared memory: fp32 at row stride hd + 4,
+//     bf16 at hd + 8 elements. Every fragment read is free of bank conflicts.
+//   * fp32: each product is three tf32 mma.sync m16n8k8 (hi hi, hi lo, lo hi;
+//     x = hi + lo split at the fragment read). bf16 inputs are exact in tf32:
+//     Q K^T one product, P V two (P's hi and lo against V).
+//   * The online softmax, the masks (tiles outside a warp's band skipped,
+//     the per-element mask on the band's edge tiles only), the rows that see
+//     no key and the output are those of the kernel above; P is the A
+//     fragment of P V under the same permuted k (keys 2t, 2t + 1).
+// Shared memory: fp32 199,680 bytes at hd 256 and 76,800 at hd 96; bf16
+// 100,352 and 52,224.
+// ---------------------------------------------------------------------------
+
+constexpr int kWWarps = 4;
+constexpr int kWThreads = 32 * kWWarps;
+constexpr int kWBQ = 16 * kWWarps;   // query rows per CTA
+
+template <typename T, int HD>
+struct WideLayout {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  // keys per K/V tile: 16 for bf16 at hd 256, whose 32-key tile spilled 8 bytes
+  static constexpr int kBK = !kF32 && HD == 256 ? 16 : 32;
+  static constexpr int kNT = kBK / 8;                // score n-tiles of 8 keys in a tile
+  static constexpr int QS = HD + 4;                  // fp32 row stride of Q
+  static constexpr int RS = kF32 ? HD + 4 : HD + 8;  // row stride of a K or V tile, in T
+  static constexpr size_t kQBytes = 4 * size_t(kWBQ) * QS;
+  static constexpr size_t kTileBytes = sizeof(T) * size_t(kBK) * RS;
+  // Q, then two buffers of (K tile, V tile)
+  static constexpr size_t kBytes = kQBytes + 4 * kTileBytes;
+  static_assert(HD % 16 == 0, "whole 16-byte chunks and 8-deep k-steps");
+  static_assert(kBytes <= 232448, "shared memory over a block's 227 KB");
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// keys [k0, k0 + kBK) of K and V into one buffer
+template <typename T, int HD>
+__device__ __forceinline__ void wide_issue(T* kdst, T* vdst, const T* kb, const T* vb,
+                                           long long k0, long long sk) {
+  using L = WideLayout<T, HD>;
+  constexpr int kE = 16 / sizeof(T);
+  constexpr int kCPR = HD / kE;
+  for (int f = threadIdx.x; f < L::kBK * kCPR; f += kWThreads) {
+    const int r = f / kCPR;
+    const int c = (f % kCPR) * kE;
+    const bool ok = k0 + r < sk;
+    const long long src = (ok ? k0 + r : 0) * HD + c;
+    cp_async16(kdst + r * L::RS + c, kb + src, ok);
+    cp_async16(vdst + r * L::RS + c, vb + src, ok);
+  }
+}
+
+// one tile of a warp: S = Q K^T, the masks, the online softmax, O += P V
+template <typename T, int HD, bool MASKED>
+__device__ __forceinline__ void wide_tile(const float* Qw, const T* Kt, const T* Vt,
+                                          float (&m)[2], float (&l)[2],
+                                          float (&acc)[HD / 8][4], long long k0,
+                                          long long ra, long long sk, int causal,
+                                          int has_window, long long window, float scale,
+                                          int g, int t) {
+  using L = WideLayout<T, HD>;
+  constexpr bool kF32 = L::kF32;
+  constexpr int kNT = L::kNT;
+  float s[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 4
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    const int c0 = 8 * ks + t;
+    const float x[4] = {Qw[g * L::QS + c0], Qw[(g + 8) * L::QS + c0],
+                        Qw[g * L::QS + c0 + 4], Qw[(g + 8) * L::QS + c0 + 4]};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kF32)
+        split(x[e], ah[e], al[e]);
+      else
+        ah[e] = __float_as_uint(x[e]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const T* kr = Kt + (8 * j + g) * L::RS + c0;
+      const float b0 = widen(kr[0]), b1 = widen(kr[4]);
+      if constexpr (kF32) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(b0, bh0, bl0);
+        split(b1, bh1, bl1);
+        mma(s[j], al, bh0, bh1);
+        mma(s[j], ah, bl0, bl1);
+        mma(s[j], ah, bh0, bh1);
+      } else {
+        mma(s[j], ah, __float_as_uint(b0), __float_as_uint(b1));
+      }
+    }
+  }
+
+  float rmax[2] = {kMaskFill, kMaskFill};
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = kF32 ? s[j][e] : s[j][e] * scale;
+      if constexpr (MASKED) {
+        const long long qi = ra + g + 8 * (e >> 1);
+        const long long ki = k0 + 8 * j + 2 * t + (e & 1);
+        const bool visible =
+            ki < sk && (!causal || ki <= qi) && (!has_window || qi - ki < window);
+        x = visible ? x : kMaskFill;
+      }
+      s[j][e] = x;
+      rmax[e >> 1] = fmaxf(rmax[e >> 1], x);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const float m_new = fmaxf(m[rr], quad_max(rmax[rr]));
+    alpha[rr] = expf(m[rr] - m_new);
+    m[rr] = m_new;
+    l[rr] *= alpha[rr];
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = expf(s[j][e] - m[e >> 1]);
+      if constexpr (MASKED) {
+        if (k0 + 8 * j + 2 * t + (e & 1) >= sk) p = 0.f;
+      }
+      s[j][e] = p;
+      l[e >> 1] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    // P's A fragment under the permuted k: logical t <- key 2t, t + 4 <- key 2t + 1
+    uint32_t ph[4], pl[4];
+    split(s[j][0], ph[0], pl[0]);
+    split(s[j][2], ph[1], pl[1]);
+    split(s[j][1], ph[2], pl[2]);
+    split(s[j][3], ph[3], pl[3]);
+    const T* v0 = Vt + (8 * j + 2 * t) * L::RS + g;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const float b0 = widen(v0[8 * n]), b1 = widen(v0[L::RS + 8 * n]);
+      if constexpr (kF32) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(b0, bh0, bl0);
+        split(b1, bh1, bl1);
+        mma(acc[n], pl, bh0, bh1);
+        mma(acc[n], ph, bl0, bl1);
+        mma(acc[n], ph, bh0, bh1);
+      } else {
+        mma(acc[n], pl, __float_as_uint(b0), __float_as_uint(b1));
+        mma(acc[n], ph, __float_as_uint(b0), __float_as_uint(b1));
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kWThreads)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ o, int H, int group, long long sq, long long sk, int causal,
+                  int has_window, long long window, float scale) {
+  using L = WideLayout<T, HD>;
+  constexpr bool kF32 = L::kF32;
+  constexpr int kWBK = L::kBK;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* Qs = reinterpret_cast<float*>(smem);
+  auto ktile = [&](int i) { return reinterpret_cast<T*>(smem + L::kQBytes + 2 * i * L::kTileBytes); };
+  auto vtile = [&](int i) {
+    return reinterpret_cast<T*>(smem + L::kQBytes + (2 * i + 1) * L::kTileBytes);
+  };
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const long long h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const long long q0 = static_cast<long long>(gridDim.z - 1 - blockIdx.z) * kWBQ;
+  const long long kv_head = b * (H / group) + h / group;
+  const T* qb = q + (b * H + h) * sq * HD;
+  const T* kb = k + kv_head * sk * HD;
+  const T* vb = v + kv_head * sk * HD;
+  T* ob = o + (b * H + h) * sq * HD;
+
+  auto key_lo = [&](long long qi) {
+    return has_window && qi - window + 1 > 0 ? qi - window + 1 : 0LL;
+  };
+  auto key_hi = [&](long long qi) { return causal && qi < sk - 1 ? qi : sk - 1; };
+  const long long q_last = (q0 + kWBQ < sq ? q0 + kWBQ : sq) - 1;
+  long long k_begin = 0, k_end = sk;
+  if (!(has_window && (window < 1 || q_last >= sk + window - 1))) {
+    k_begin = key_lo(q0);
+    k_end = key_hi(q_last) + 1;
+  }
+  const long long ra = q0 + 16 * warp;
+  const long long rz = (ra + 15 < sq ? ra + 15 : sq - 1);
+  const bool warp_blind = has_window && (window < 1 || rz >= sk + window - 1);
+
+  const long long tile0 = k_begin / kWBK;
+  const int ntiles = static_cast<int>((k_end + kWBK - 1) / kWBK - tile0);
+  if (ntiles > 0) wide_issue<T, HD>(ktile(0), vtile(0), kb, vb, tile0 * kWBK, sk);
+  cp_async_commit();
+
+  // Q into shared memory: fp32 scaled once, bf16 widened (scaled on the scores)
+  const float qs = kF32 ? scale : 1.f;
+  for (int f = threadIdx.x; f < kWBQ * HD / 2; f += kWThreads) {
+    const int r = f / (HD / 2);
+    const int c = 2 * (f % (HD / 2));
+    const float2 x = q0 + r < sq ? load2(qb + (q0 + r) * HD + c) : make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(Qs + r * L::QS + c) = make_float2(x.x * qs, x.y * qs);
+  }
+  const float* Qw = Qs + 16 * warp * L::QS;
+
+  float m[2] = {kMaskFill, kMaskFill};
+  float l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    if (i + 1 < ntiles)
+      wide_issue<T, HD>(ktile((i + 1) & 1), vtile((i + 1) & 1), kb, vb,
+                        (tile0 + i + 1) * kWBK, sk);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();   // tile i (and, first time round, Q) visible to every warp
+    const long long k0 = (tile0 + i) * kWBK;
+    const long long kz = k0 + kWBK - 1;
+    Mode mode = kEdge;
+    if (ra >= sq) {
+      mode = kSkip;
+    } else if (!warp_blind) {
+      if (k0 > key_hi(rz) || kz < key_lo(ra))
+        mode = kSkip;
+      else if (kz < sk && key_lo(rz) <= k0 && kz <= key_hi(ra))
+        mode = kFull;
+    }
+    if (mode == kFull)
+      wide_tile<T, HD, false>(Qw, ktile(i & 1), vtile(i & 1), m, l, acc, k0, ra, sk, causal,
+                              has_window, window, scale, g, t);
+    else if (mode == kEdge)
+      wide_tile<T, HD, true>(Qw, ktile(i & 1), vtile(i & 1), m, l, acc, k0, ra, sk, causal,
+                             has_window, window, scale, g, t);
+    __syncthreads();   // buffer i & 1 is free for tile i + 2
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long qi = ra + g + 8 * rr;
+    const float denom = fmaxf(quad_sum(l[rr]), 1e-30f);
+    if (qi >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      store2(ob + qi * HD + 8 * n + 2 * t, acc[n][2 * rr] / denom, acc[n][2 * rr + 1] / denom);
+  }
+}
+
+// one grid (H, B, query tiles) of the head dim's kernel: flash_wide_kernel
+// (64 query rows, kWThreads) at the wide head dims, else flash_fwd_kernel
+// (128 rows, kThreads)
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, long long B, long long H,
            long long KV, long long sq, long long sk, int causal, int has_window,
            long long window, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = Layout<T, HD>::kBytes;
-  const long long tiles = (sq + kBQ - 1) / kBQ;
+  using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, long long, long long, int,
+                          int, long long, float);
+  Kernel kernel;
+  size_t bytes;
+  int rows, threads;
+  if constexpr (HD == 96 || HD == 256) {
+    kernel = flash_wide_kernel<T, HD>;
+    bytes = WideLayout<T, HD>::kBytes;
+    rows = kWBQ;
+    threads = kWThreads;
+  } else {
+    kernel = flash_fwd_kernel<T, HD>;
+    bytes = Layout<T, HD>::kBytes;
+    rows = kBQ;
+    threads = kThreads;
+  }
+  const long long tiles = (sq + rows - 1) / rows;
   if (B >= 65536 || tiles >= 65536 || H >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
                   static_cast<unsigned>(tiles));
-  flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, threads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<int>(H), static_cast<int>(H / KV), sq, sk, causal,
       has_window, window, scale);
@@ -686,8 +988,10 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B, lo
 extern "C" {
 
 // q: (B,H,sq,hd), k/v: (B,KV,sk,hd), o: (B,H,sq,hd); fp32 (bf16 = 0) or bf16
-// (bf16 = 1); hd 64 or 128; window used when has_window; scale = 1/sqrt(hd).
-// B < 65536 and ceil(sq / 128) < 65536 (the grid's y and z).
+// (bf16 = 1); hd 64 or 128 (flash_fwd_kernel) or 96 or 256 (flash_wide_kernel);
+// window used when has_window; scale = 1/sqrt(hd). B < 65536 and the query
+// tiles ceil(sq / 128) (hd 64, 128) or ceil(sq / 64) (hd 96, 256) < 65536 (the
+// grid's y and z).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long B, long long H, long long KV, long long sq,
                         long long sk, long long hd, int bf16, int causal,
@@ -695,16 +999,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   if (B <= 0 || H <= 0 || sq <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || H % KV != 0 || sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64 && !bf16)
-    return launch<float, 64>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window, scale, s);
-  if (hd == 128 && !bf16)
-    return launch<float, 128>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window, scale, s);
-  if (hd == 64 && bf16)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window,
-                                     scale, s);
-  if (hd == 128 && bf16)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window,
-                                      scale, s);
+#define FLASH_LAUNCH(T, HD) \
+  launch<T, HD>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window, scale, s)
+  switch (hd) {
+    case 64: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 64) : FLASH_LAUNCH(float, 64);
+    case 96: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 96) : FLASH_LAUNCH(float, 96);
+    case 128: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 128) : FLASH_LAUNCH(float, 128);
+    case 256: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 256) : FLASH_LAUNCH(float, 256);
+  }
+#undef FLASH_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,9 +2,12 @@
 
 Replaces ``src/repro/kernels/flash_attention.py``
 (``flash_attention_pallas``). Kernel: ``csrc/flash_attention.cu``
-(``flash_fwd_kernel``): an online softmax over K/V tiles held in shared
-memory (a ring of cp.async stages), GQA, causal and sliding-window masks
-by index arithmetic, 128 query rows a CTA.
+(``flash_fwd_kernel`` at head dims 64 and 128): an online softmax over K/V
+tiles held in shared memory (a ring of cp.async stages), GQA, causal and
+sliding-window masks by index arithmetic, 128 query rows a CTA. Head dims
+96 and 256 (phi-3-vision, recurrentgemma) take ``flash_wide_kernel`` in
+the same source: the same function with Q staged in shared memory,
+double-buffered 32-key tiles and 64 query rows a CTA.
 
 Bound on an H100: operations on the tensor cores. The reference computes
 in fp32; the kernel keeps fp32 accuracy with a split x = hi + lo: the hi
@@ -35,7 +38,11 @@ from repro_torch.kernels import _build, ref
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
 #: head dims the kernel is built for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128, 256)
+#: the head dims that take ``flash_wide_kernel`` (the rest ``flash_fwd_kernel``)
+WIDE_HEAD_DIMS = (96, 256)
+#: query rows a CTA, by head dim (the wide kernel's tile is 64 rows)
+QUERY_TILE = {hd: 64 if hd in WIDE_HEAD_DIMS else DEFAULT_BLOCK_Q for hd in HEAD_DIMS}
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -63,8 +70,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head dim {hd} is not one the kernel is built for {HEAD_DIMS}")
     if sk == 0:
         raise ValueError("no keys to attend to")
-    if B >= 2**16 or -(-sq // DEFAULT_BLOCK_Q) >= 2**16:
-        raise ValueError(f"batch {B} and query tiles ceil({sq} / {DEFAULT_BLOCK_Q}) must each "
+    rows = QUERY_TILE[hd]
+    if B >= 2**16 or -(-sq // rows) >= 2**16:
+        raise ValueError(f"batch {B} and query tiles ceil({sq} / {rows}) must each "
                          "be < 65536 (the grid's y, z)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":

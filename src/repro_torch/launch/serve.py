@@ -12,7 +12,10 @@ a multiple of 128 prefills through the flash-attention kernel (e.g.
 cache with the masked softmax. For ``--arch xlstm-125m`` a prompt of any
 length runs each sLSTM layer's recurrence through the sLSTM-scan kernel
 (e.g. ``--prompt-len 1024``), and decoding continues from the state the
-prefill returns.
+prefill returns. Every architecture of ``--arch`` serves: the
+encoder-decoder (``whisper-small``) is given zero frame embeddings and
+the VLM (``phi-3-vision-4.2b``) zero patch embeddings, as the reference's
+``main`` gives them.
 """
 from __future__ import annotations
 
@@ -45,26 +48,34 @@ def generate(model: Any, params: dict[str, Any], prompts: torch.Tensor, *, gen_l
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """prompts: (B, P) integer tensor -> (B, P + gen_len) int32 tokens.
 
-    The reference's algorithm: prefill the prompt; for a full-attention
-    ``DecoderLM`` discard the prefill's cache (sized to the prompt) and
-    replay the prompt token by token into a (P + gen_len) cache; a
-    sliding-window model decodes on from the prefill's rolling cache, and
-    a recurrent one (``XLSTMModel``) from the prefill's state.
+    The reference's algorithm: prefill the prompt (with ``extra``'s
+    ``frames`` for an encoder-decoder, or ``patches`` for a VLM, as the
+    prefill's third argument); for a full-attention ``DecoderLM`` discard
+    the prefill's cache (sized to the prompt) and replay the prompt token
+    by token into a (P + gen_len) cache; every other model decodes on
+    from the prefill's cache or state. Two quirks of the reference follow,
+    and are kept (ROADMAP C10, C11): a VLM's replay holds the text prompt
+    only, so the patches never reach the decode cache and decode positions
+    restart at 0; and an encoder-decoder's self-attention cache is sized
+    to the prompt, so each decode step writes into its last slot (so does
+    a window cache when the prompt is shorter than the window).
     ``greedy=False`` samples from the softmax with ``generator``, a
     ``torch.Generator`` on the prompts' device (its draws are not
     ``jax.random.categorical``'s). Runs under
     ``torch.inference_mode``. With tracing on, the spans ``serve.prefill``,
     ``serve.replay`` and ``serve.decode`` time the three phases."""
-    if extra:
-        raise NotImplementedError(
-            "encoder-decoder and VLM inputs are not ported to repro_torch yet (ROADMAP A12)")
     if not greedy and generator is None:
         raise ValueError("greedy=False needs a torch.Generator")
     bsz, P = prompts.shape
     prompts = prompts.to(torch.int32)
     with torch.inference_mode():
         with obs_trace.span("serve.prefill", "serve", batch=bsz, prompt=P):
-            logits, cache = model.prefill(params, prompts)
+            if extra:
+                frames = extra.get("frames")
+                arg = frames if frames is not None else extra.get("patches")
+                logits, cache = model.prefill(params, prompts, arg)
+            else:
+                logits, cache = model.prefill(params, prompts)
             tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
         if isinstance(model, DecoderLM) and model.cfg.sliding_window is None:
             with obs_trace.span("serve.replay", "serve", steps=P):
@@ -102,8 +113,15 @@ def main(argv: Optional[list[str]] = None) -> None:
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     ).to(device)
+    extra = None
+    if cfg.family == "encdec":
+        extra = {"frames": torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                                       dtype=torch.float32, device=device)}
+    if cfg.family == "vlm":
+        extra = {"patches": torch.zeros((args.batch, cfg.num_patches, cfg.d_model),
+                                        dtype=torch.float32, device=device)}
     t0 = time.time()
-    tokens = generate(model, params, prompts, gen_len=args.gen)
+    tokens = generate(model, params, prompts, gen_len=args.gen, extra=extra)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0

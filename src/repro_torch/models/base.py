@@ -1,9 +1,9 @@
 """Model configuration and the closed-form parameter count.
 
 Mirror of ``src/repro/models/base.py``. :class:`ModelConfig` keeps every
-field of the reference's config so the configs read the same; the port
-builds only the dense family so far (``models/transformer.py``). The
-logical sharding axis names are kept as labels on each parameter spec.
+field of the reference's config so the configs read the same, for all six
+families (dense, moe, vlm, ssm, hybrid, encdec). The logical sharding
+axis names are kept as labels on each parameter spec.
 """
 from __future__ import annotations
 
@@ -94,3 +94,14 @@ def param_count(cfg: ModelConfig) -> int:
     per_layer = attn + ffn + 2 * d
     return v * d * 2 + cfg.num_layers * per_layer + d
 
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only routed experts) for MODEL_FLOPS."""
+    if cfg.family != "moe":
+        return param_count(cfg)
+    d, f = cfg.d_model, cfg.d_ff
+    qf, kvf = cfg.q_feat, cfg.kv_feat
+    attn = d * qf + 2 * d * kvf + qf * d
+    ffn = cfg.experts_per_token * 3 * d * f + d * cfg.num_experts
+    per_layer = attn + ffn + 2 * d
+    return cfg.vocab_size * d * 2 + cfg.num_layers * per_layer + d

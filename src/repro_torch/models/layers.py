@@ -1,6 +1,6 @@
-"""Shared neural building blocks, dense subset: parameter specs, RMSNorm,
-RoPE, GQA attention with its decode caches, the gated MLP, embedding/head
-and the LM loss.
+"""Shared neural building blocks: parameter specs, RMSNorm and LayerNorm,
+RoPE and sinusoidal positions, GQA attention with its decode caches,
+cross-attention (enc-dec), the gated MLP, embedding/head and the LM loss.
 
 Mirror of ``src/repro/models/layers.py``. Everything is functional
 (params are plain dicts of tensors) and keeps the reference's layout:
@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import (
@@ -117,6 +118,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return ((x32 * torch.rsqrt(var + eps)) * (1.0 + scale.to(torch.float32))).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale + bias).to(dtype)
+
+
 def norm_spec(d: int) -> ParamDef:
     return ParamDef((d,), (B.EMBED,), init="zeros")
 
@@ -185,6 +195,16 @@ def _project_qkv(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return q, k, v
+
+
+def sinusoidal_positions(s: int, d: int, dtype: torch.dtype, device: Any) -> torch.Tensor:
+    """Classic transformer sinusoidal table (whisper-style encoders),
+    (s, d): computed in float64 numpy and then cast, as the reference's."""
+    pos = np.arange(s)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(table).to(device=device, dtype=dtype)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
@@ -295,6 +315,29 @@ def attn_decode(x: torch.Tensor, p: dict[str, torch.Tensor], cache: dict[str, to
     v_all = cache["v"].reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
     out = _sdpa(q, k_all, v_all, mask, cfg)
     return out @ p["wo"].to(x.dtype), cache
+
+
+# -- cross attention (enc-dec) --------------------------------------------------
+
+def cross_attn_forward(x: torch.Tensor, memory: Optional[torch.Tensor],
+                       p: dict[str, torch.Tensor], cfg: B.ModelConfig,
+                       kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+                       ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Decoder cross-attention. q from ``x`` (b,s,d); k/v from ``memory``
+    (b,t,d), or from precomputed ``kv`` (decode path). No mask, no rope.
+    Returns (out, (k, v)) so prefill can cache the projected memory."""
+    bsz, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(bsz, s, cfg.num_heads, hd)
+    if kv is None:
+        t = memory.shape[1]
+        k = (memory @ p["wk"].to(x.dtype)).reshape(bsz, t, cfg.num_kv_heads, hd)
+        v = (memory @ p["wv"].to(x.dtype)).reshape(bsz, t, cfg.num_kv_heads, hd)
+    else:
+        k, v = kv
+    mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k.to(x.dtype), v.to(x.dtype), mask, cfg)
+    return out @ p["wo"].to(x.dtype), (k, v)
 
 
 # ---------------------------------------------------------------------------

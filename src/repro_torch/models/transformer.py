@@ -1,17 +1,19 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer: the dense, MoE and VLM-backbone families.
 
-Mirror of ``src/repro/models/transformer.py`` (``DecoderLM``) for
-``family == "dense"``: one block = RMSNorm -> GQA attention -> residual,
-RMSNorm -> gated MLP -> residual. Per-layer parameters stay **stacked**
-on a leading layer axis (``blocks.attn.wq`` is (L, d, q_feat)), exactly
-as the reference's ``lax.scan`` consumes them, so flat names and wire
-bytes match; the forward walks the layers in a Python loop over
-``unbind`` views (one backward ``stack`` per parameter, no per-layer
-full-size gradient buffers). Serving: ``prefill`` runs the prompt
-through :func:`layers.sdpa_or_flash` and returns the last position's
-logits and a cache; ``decode_step`` adds one token, writing the stacked
-(layer-first) cache in place. MoE and VLM prefixes wait for later slices
-(ROADMAP A12).
+Mirror of ``src/repro/models/transformer.py`` (``DecoderLM``): one block =
+RMSNorm -> GQA attention -> residual, RMSNorm -> gated MLP (or, for
+``moe``, the routed experts of ``models/moe.py``) -> residual; the MoE
+aux loss is summed over layers. The VLM family is the same decoder
+consuming stub patch embeddings as a prefix of the token embeddings
+(``patches`` in ``forward``, ``loss`` and ``prefill``). Per-layer
+parameters stay **stacked** on a leading layer axis (``blocks.attn.wq``
+is (L, d, q_feat)), exactly as the reference's ``lax.scan`` consumes
+them, so flat names and wire bytes match; the forward walks the layers
+in a Python loop over ``unbind`` views (one backward ``stack`` per
+parameter, no per-layer full-size gradient buffers). Serving:
+``prefill`` runs the prompt through :func:`layers.sdpa_or_flash` and
+returns the last position's logits and a cache; ``decode_step`` adds
+one token, writing the stacked (layer-first) cache in place.
 """
 from __future__ import annotations
 
@@ -21,24 +23,41 @@ import torch
 
 from repro_torch.models import base as B
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _block_spec(cfg: B.ModelConfig) -> dict[str, Any]:
-    return {
+    spec: dict[str, Any] = {
         "attn_norm": L.norm_spec(cfg.d_model),
         "attn": L.attention_spec(cfg),
         "mlp_norm": L.norm_spec(cfg.d_model),
-        "mlp": L.mlp_spec(cfg),
     }
+    if cfg.family == "moe":
+        spec["moe"] = M.moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg)
+    return spec
+
+
+def _ffn(x: torch.Tensor, bp: dict[str, Any],
+         cfg: B.ModelConfig) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's second half on the normed ``x``: the gated MLP, or the
+    routed experts and their aux loss."""
+    xin = L.rms_norm(x, bp["mlp_norm"])
+    if cfg.family == "moe":
+        return M.moe_forward(xin, bp["moe"], cfg)
+    return L.mlp_forward(xin, bp["mlp"]), None
 
 
 def _block_forward(x: torch.Tensor, bp: dict[str, Any], cfg: B.ModelConfig, *,
-                   window: Optional[int]) -> torch.Tensor:
+                   window: Optional[int]) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = L.attn_forward(L.rms_norm(x, bp["attn_norm"]), bp["attn"], cfg,
                        causal=True, window=window)
     x = x + h
-    h = L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
-    return x + h
+    h, aux = _ffn(x, bp, cfg)
+    return x + h, aux
 
 
 def _block_decode(x: torch.Tensor, bp: dict[str, Any], cache: dict[str, torch.Tensor],
@@ -47,7 +66,7 @@ def _block_decode(x: torch.Tensor, bp: dict[str, Any], cache: dict[str, torch.Te
     h, cache = L.attn_decode(L.rms_norm(x, bp["attn_norm"]), bp["attn"], cache, pos, cfg,
                              window=window)
     x = x + h
-    h = L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
+    h, _ = _ffn(x, bp, cfg)
     return x + h, cache
 
 
@@ -63,13 +82,22 @@ def _layer(unbound: Any, i: int) -> Any:
     return unbound[i]
 
 
+def _embed(params: dict[str, Any], tokens: torch.Tensor, patches: Optional[torch.Tensor],
+           cfg: B.ModelConfig) -> tuple[torch.Tensor, int]:
+    """Token embeddings, with ``patches`` (b, n, d) prefixed when given;
+    returns them and the prefix length."""
+    x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
+    if patches is None:
+        return x, 0
+    return torch.cat([patches.to(cfg.activ_dtype), x], dim=1), patches.shape[1]
+
+
 class DecoderLM:
-    """Dense decoder LM over a nested dict of parameters."""
+    """Decoder LM (dense | moe | vlm) over a nested dict of parameters."""
 
     def __init__(self, cfg: B.ModelConfig) -> None:
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported to repro_torch yet (ROADMAP A12)")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"DecoderLM builds families {FAMILIES}, not {cfg.family!r}")
         self.cfg = cfg
         self._spec = {
             "embed": L.embed_spec(cfg),
@@ -88,20 +116,25 @@ class DecoderLM:
         return L.param_shapes(self._spec)
 
     # -- forward / loss ------------------------------------------------------
-    def forward(self, params: dict[str, Any], tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, params: dict[str, Any], tokens: torch.Tensor,
+                patches: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Logits of the token positions (the patch prefix's are dropped)
+        and the aux loss summed over layers (0 but for ``moe``)."""
         cfg = self.cfg
-        x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
+        x, n_prefix = _embed(params, tokens, patches, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         unbound = _unbind_tree(params["blocks"])
         for i in range(cfg.num_layers):
-            x = _block_forward(x, _layer(unbound, i), cfg, window=cfg.sliding_window)
-        logits = L.lm_logits(x, params["embed"])
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+            x, a = _block_forward(x, _layer(unbound, i), cfg, window=cfg.sliding_window)
+            if a is not None:
+                aux = aux + a
+        logits = L.lm_logits(x[:, n_prefix:], params["embed"])
         return logits, aux
 
     def loss(self, params: dict[str, Any],
              batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         cfg = self.cfg
-        logits, aux = self.forward(params, batch["tokens"])
+        logits, aux = self.forward(params, batch["tokens"], batch.get("patches"))
         lm = L.causal_lm_loss(logits[:, :-1], batch["labels"][:, 1:], cfg.z_loss)
         total = lm + cfg.aux_loss_coef * aux
         return total, {"lm_loss": lm, "aux_loss": aux}
@@ -120,13 +153,15 @@ class DecoderLM:
         return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.ndim)
                 for k, v in one.items()}
 
-    def prefill(self, params: dict[str, Any],
-                tokens: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """Run the full prompt, returning last-position logits (b, 1, vocab)
-        and a cache sized to the prompt (decode continues from pos = S)."""
+    def prefill(self, params: dict[str, Any], tokens: torch.Tensor,
+                patches: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Run the full prompt (after the ``patches`` prefix, if any),
+        returning last-position logits (b, 1, vocab) and a cache sized to
+        prefix + prompt (decode continues from pos = S)."""
         cfg = self.cfg
         window = cfg.sliding_window
-        x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
+        x, _ = _embed(params, tokens, patches, cfg)
         bsz, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :]
         w = s if window is None else min(window, s)
@@ -138,7 +173,7 @@ class DecoderLM:
             q, k, v = L._project_qkv(xin, bp["attn"], cfg, positions)
             out = L.sdpa_or_flash(q, k, v, cfg, causal=True, window=window)
             x = x + out @ bp["attn"]["wo"].to(x.dtype)
-            x = x + L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
+            x = x + _ffn(x, bp, cfg)[0]
             ks.append(k.reshape(bsz, s, cfg.kv_feat)[:, s - w:].to(cfg.activ_dtype))
             vs.append(v.reshape(bsz, s, cfg.kv_feat)[:, s - w:].to(cfg.activ_dtype))
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}

@@ -98,6 +98,11 @@ def tree_bytes(tree: Any) -> int:
     return total
 
 
+def tree_param_count(tree: Any) -> int:
+    """Total element count of every leaf with a shape in ``tree``."""
+    return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(tree) if hasattr(leaf, "shape"))
+
+
 def flatten_state_dict(tree: Any, prefix: str = "") -> dict[str, Any]:
     """Flatten a nested dict of tensors to ``{dotted.name: tensor}``.
 

@@ -9,11 +9,14 @@ dequantize bitwise for nf4 and fp4, the K-way dequantize-and-sum bitwise
 places where a case holds NaN (a NaN's payload bits are not compared: the card's
 arithmetic returns its canonical NaN). Flash attention is held to the
 tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
-``chip_smoke.py`` uses too), and its backward must
-raise; so is the sLSTM scan (``SLSTM_TOL``, h and the final state), at
+``chip_smoke.py`` uses too) at head dims 64, 96, 128 and 256, refuses
+another, and its backward must raise; so is the sLSTM scan
+(``SLSTM_TOL``, h and the final state), at
 head dims that take each cluster layout too, whose backward must raise.
-Two gloo ranks on the card run the int8 collective against the
-same collective on the CPU, bitwise. The quantize and dequantize filters
+Each new model family (MoE, hybrid, enc-dec, VLM and the dense configs)
+serves at smoke width on the card as on the CPU. Two gloo ranks on the
+card run the int8 collective against the same collective on the CPU,
+bitwise. The quantize and dequantize filters
 launch one kernel per item, and ``examples/jobs/legacy_quantized.json``
 at smoke width with fixed updates gives the CPU's weights and wire bytes
 on the card, in container and regular transmission. The LoRA plane:
@@ -179,6 +182,58 @@ def test_flash_kernel_matches_its_plain_version_on_the_card(cuda, name):
     assert out.dtype == dtype and out.shape == q.shape
     atol, rtol = ATTENTION_TOL[c["dtype"]]
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_a_head_dim_it_was_not_built_for_on_the_card(cuda):
+    q, k, v = (torch.zeros((1, 2, 128, 80), device=cuda) for _ in range(3))
+    with pytest.raises(ValueError, match="built for"):
+        flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "dbrx-132b", "whisper-small",
+                                  "llama4-scout-17b-a16e", "recurrentgemma-2b", "granite-8b",
+                                  "phi-3-vision-4.2b", "qwen2.5-32b"])
+def test_family_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """Smoke width, the same seeded weights on the card (a 128-row
+    prefill: each attention layer through the flash kernel) and on the
+    CPU: prefill logits and caches within 1e-5 * (1 + |want|), greedy
+    tokens equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import create_model
+    from repro_torch.utils.trees import flatten_state_dict, unflatten_state_dict
+
+    cfg = get_smoke_config(arch).with_overrides(remat=False)
+    model = create_model(cfg)
+    cpu_params = model.init(0, "cpu")
+    card_params = unflatten_state_dict(
+        {k: v.to(cuda) for k, v in flatten_state_dict(cpu_params).items()})
+    rng = np.random.default_rng(2)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 128 - (cfg.num_patches if cfg.family == "vlm" else 0))
+    ).astype(np.int32))
+    extra = {}
+    if cfg.family in ("encdec", "vlm"):
+        n = cfg.encoder_seq if cfg.family == "encdec" else cfg.num_patches
+        key = "frames" if cfg.family == "encdec" else "patches"
+        extra[key] = torch.from_numpy(
+            rng.standard_normal((2, n, cfg.d_model)).astype(np.float32))
+    outs = {}
+    before = flash_attention.launches
+    for d, params in (("cpu", cpu_params), (cuda, card_params)):
+        ex = {k: v.to(d) for k, v in extra.items()}
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, prompts.to(d), *ex.values())
+        tokens = generate(model, params, prompts.to(d), gen_len=6, extra=ex or None)
+        outs[str(d)] = [logits.cpu()] + [t.cpu() for t in flatten_state_dict(cache).values()]
+        outs[str(d) + "_tokens"] = tokens.cpu()
+    torch.cuda.synchronize()
+    assert flash_attention.launches > before
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        assert bool(((got.float() - want.float()).abs() <= 1e-5 * (1 + want.abs())).all())
+    assert torch.equal(outs[str(cuda) + "_tokens"], outs["cpu_tokens"])
 
 
 @pytest.mark.cuda

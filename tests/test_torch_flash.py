@@ -34,9 +34,12 @@ from repro_torch.kernels.cases import attention_case, attention_inputs  # noqa: 
 #: two GQA groups, causal and non-causal, a window, Sq != Sk, the rows
 #: that see no key, bf16, a query length that is no multiple of the
 #: kernel's 128-row tile with a window that is no multiple of a key tile,
-#: and bf16 at hd 128
+#: bf16 at hd 128, and the wide head dims 96 and 256 (MHA; MQA with a
+#: window, non-causal, Sq != Sk; bf16 at both), and a GQA group of 6 at hd 128
 SUBSET = ("group2", "group8", "non_causal", "window32", "cross_lengths",
-          "fully_masked_rows", "bf16", "window100_sq320", "bf16_hd128")
+          "fully_masked_rows", "bf16", "window100_sq320", "bf16_hd128",
+          "hd96", "hd256_mqa_window", "hd256_non_causal", "hd256_cross_lengths",
+          "bf16_hd96", "bf16_hd256", "group6_hd128")
 TOL_PALLAS = {"float32": 2e-3, "bfloat16": 2e-2}
 
 
@@ -123,7 +126,7 @@ def _meta(*shape, dtype=torch.float32):
 @pytest.mark.parametrize("bad, match", [
     ((_meta(1, 4, 128, 64), _meta(1, 3, 128, 64), _meta(1, 3, 128, 64)), "groups"),
     ((_meta(1, 4, 128, 64), _meta(1, 2, 128, 128), _meta(1, 2, 128, 128)), "head dim"),
-    ((_meta(1, 4, 128, 96), _meta(1, 2, 128, 96), _meta(1, 2, 128, 96)), "built for"),
+    ((_meta(1, 4, 128, 80), _meta(1, 2, 128, 80), _meta(1, 2, 128, 80)), "built for"),
     ((_meta(1, 4, 128, 64, dtype=torch.float16),) * 3, "float32 or bfloat16"),
     ((_meta(1, 4, 128, 64), _meta(1, 2, 128, 64, dtype=torch.bfloat16),
       _meta(1, 2, 128, 64, dtype=torch.bfloat16)), "dtypes differ"),

@@ -19,7 +19,9 @@ orders (and the Pallas kernel its online softmax), so values differ in
 the last bits; greedy tokens must be equal.
 
 Also: the CLI runs on the CPU when asked and raises without CUDA when
-not, and sampled decoding is deterministic for a seeded generator.
+not, and sampled decoding is deterministic for a seeded generator. The
+other families, and ``generate``'s ``extra`` (frames, patches), are held
+to the reference in ``tests/test_torch_serve_families.py``.
 """
 import functools
 
@@ -169,8 +171,6 @@ def test_sampled_decoding_is_seeded():
     assert int(runs[0].min()) >= 0 and int(runs[0].max()) < model.cfg.vocab_size
     with pytest.raises(ValueError, match="Generator"):
         serve.generate(model, params, prompts, gen_len=2, greedy=False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        serve.generate(model, params, prompts, gen_len=2, extra={"patches": None})
 
 
 def test_cli_serves_on_the_cpu_when_asked(capsys):
@@ -186,9 +186,3 @@ def test_cli_without_a_device_raises_on_a_cpu_only_host():
         pytest.skip("this host has CUDA; the default would run there")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--smoke"])
-
-
-def test_other_families_are_not_ported():
-    cfg = get_smoke_config("llama3.2-1b").with_overrides(family="moe")
-    with pytest.raises(NotImplementedError, match="A12"):
-        create_model(cfg)

@@ -276,6 +276,36 @@ def test_full_width_lora_launches_follow_the_shapes():
     assert testing.lora_launches(SPEC, shapes) == {"quantize_4bit": 8, "dequantize_4bit": 8}
 
 
+@pytest.mark.parametrize("layers,launches", [(2, 24), (8, 24), (9, 8)])
+def test_lora_launches_at_a_cut_depth(layers, launches):
+    """The spec at full width and ``num_layers`` deep: below 9 layers the
+    stacked ``(layers, 2048)`` norms are too small for rank-8 factors to
+    pay (``8 * (8 + 2048) >= 8 * 2048``) and join ``final_norm`` in nf4,
+    three B4 and three B5 an uplink; from 9 layers on they are decomposed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderLM
+
+    spec = {**SPEC, "smoke": False, "num_layers": layers}
+    shapes = DecoderLM(get_config("llama3.2-1b").with_overrides(num_layers=layers)
+                       ).param_shapes()
+    assert shapes["blocks.attn_norm"] == (layers, 2048)
+    assert testing.lora_launches(spec, shapes) == {"quantize_4bit": launches,
+                                                   "dequantize_4bit": launches}
+
+
+def test_num_layers_sets_the_jobs_depth():
+    """``num_layers`` (the port's own spec key) builds the model at that
+    depth, widths unchanged; without it the model keeps its own depth."""
+    cut = port_job.initial_weights({**SPEC, "num_layers": 3}, device="cpu")
+    whole = port_job.initial_weights(SPEC, device="cpu")
+    assert set(cut) == set(whole)
+    for name, w in whole.items():
+        if name.startswith("blocks."):
+            assert w.shape[0] == 2 and tuple(cut[name].shape) == (3, *w.shape[1:]), name
+        else:
+            assert cut[name].shape == w.shape, name
+
+
 def test_cli_runs_the_spec_unchanged_on_the_cpu(capsys):
     assert port_job.main([str(SPEC_PATH), "--device", "cpu"]) == 0
     summary = json.loads(capsys.readouterr().out)
