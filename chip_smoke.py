@@ -91,7 +91,9 @@ widths, 2 of its 40 layers: batch 1 x 512) and granite-8b (uncut: batch
 launches after (8 / 32 / 12 / 2 / 36), finite logits and caches, the
 spans and the device peak; B7 is held against its plain version and
 timed at each run's prefill shape (the build's ptxas lines give each
-instantiation's registers and spills); then the
+instantiation's registers and spills; for the wide kernel, hd 96 and 256,
+the card's own occupancy query gives warps an SM, registers and local
+bytes, which must be at least 8, and 0 with no ptxas spill); then the
 eight new architectures (and recurrentgemma-2b at 5 layers) at smoke
 width card vs CPU.
 
@@ -154,6 +156,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -401,12 +404,6 @@ def flash_tensor_ops(hd: int, pairs: int, bf16_rate: float = BF16_OPS_PER_S,
     return 4 * hd * pairs + 8 * hd * pairs * tf32_rate / bf16_rate
 
 
-def wide_tensor_ops(hd: int, pairs: int) -> float:
-    """``flash_wide_kernel``'s own arithmetic, as implemented: each of the
-    two products three tf32 products, 12 * hd tf32 operations a pair."""
-    return 12 * hd * pairs
-
-
 #: a tf32 m16n8k8 and a bf16 m16n8k16 mma.sync in a loop, 8 independent
 #: accumulators a warp: the tensor-core rates a kernel built on mma.sync can
 #: reach on this card (wgmma, which the published peaks assume, is not used)
@@ -510,9 +507,10 @@ def sass_counts(lib_path: str) -> dict[str, dict[str, int]]:
 
 
 def check_sass(lib_path: str) -> dict[str, dict[str, int]]:
-    """The flash kernels run tf32 (and, at hd 64 and 128 on fp32 inputs,
-    bf16) mma.sync with cp.async copies — the wide kernel (hd 96, 256)
-    tf32 only; the sLSTM kernels meet at a cluster barrier."""
+    """The flash kernels run tf32 mma.sync with cp.async copies, and on
+    fp32 inputs the bf16 mma.sync of the split's two small products too
+    (both kernels, every head dim); the sLSTM kernels meet at a cluster
+    barrier."""
     counts = sass_counts(lib_path)
     flash = {k: v for k, v in counts.items()
              if "flash_fwd_kernel" in k or "flash_wide_kernel" in k}
@@ -520,7 +518,7 @@ def check_sass(lib_path: str) -> dict[str, dict[str, int]]:
     if len(flash) != 8 or len(scan) != 2:
         fail(f"SASS: {len(flash)} flash and {len(scan)} sLSTM kernels, expected 8 and 2")
     for name, c in flash.items():
-        bf16_split = "flash_fwd_kernelIf" in name
+        bf16_split = "_kernelIf" in name
         if not (c["HMMA.1688.F32.TF32"] and c["LDGSTS"]
                 and (c["HMMA.16816.F32.BF16"] > 0) == bf16_split):
             fail(f"SASS of {name}: {c}")
@@ -2231,7 +2229,60 @@ def flash_inputs(torch, dev, B, H, KV, S, hd, seed):
             for shape in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
 
 
-def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Per kernel of the build's ``-Xptxas -v`` output: registers a thread
+    and spill store / load bytes (empty when the library came from the
+    cache and nothing was compiled)."""
+    report: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[name]["spill_stores"], report[name]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def check_wide_occupancy(torch, ptxas: dict[str, dict[str, int]]) -> dict:
+    """Each wide instantiation (hd 96 and 256, fp32 and bf16) as the card
+    holds it: at least 8 warps an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at its layout's threads and shared bytes), its registers a thread, no
+    local bytes (``cudaFuncGetAttributes``) and, where this run compiled
+    it, no ptxas spill."""
+    from repro_torch.kernels.flash_attention import WIDE_HEAD_DIMS, layout, occupancy
+
+    out = {}
+    for hd in WIDE_HEAD_DIMS:
+        for dt, tname in ((torch.float32, "f"), (torch.bfloat16, "13__nv_bfloat16")):
+            occ = occupancy(hd, dt)
+            lay = layout(hd, dt)
+            found = [v for k, v in ptxas.items() if f"flash_wide_kernelI{tname}Li{hd}E" in k]
+            spill = (found[0].get("spill_stores", 0) + found[0].get("spill_loads", 0)
+                     if found else None)
+            label = f"hd{hd}_{str(dt).split('.')[-1]}"
+            out[label] = {**occ, "smem_bytes": lay.smem_bytes, "rows": lay.rows,
+                          "keys": lay.keys, "ptxas_spill_bytes": spill}
+            print(f"flash_wide_kernel {label}: {occ['warps_per_sm']} warps an SM "
+                  f"({occ['ctas_per_sm']} CTA of {lay.warps} warps, {lay.rows} query rows, "
+                  f"{lay.keys}-key tiles, {lay.smem_bytes} shared bytes), "
+                  f"{occ['registers']} registers a thread, local bytes {occ['local_bytes']}, "
+                  f"ptxas spill bytes {spill if found else 'not in this build log'}")
+            if occ["warps_per_sm"] < 8 or occ["local_bytes"] or spill:
+                fail(f"flash_wide_kernel {label}: {out[label]}")
+    return out
+
+
+def check_flash_kernel(torch, dev, rates: dict[str, float],
+                       ptxas: dict[str, dict[str, int]]) -> dict:
     """The flash-attention kernel against its plain version on the card:
     every case of ``kernels.cases.ATTENTION_CASES``, then the two serving
     shapes of llama3.2-1b (32 heads, 8 KV heads, hd 64) — batch 4 x 512
@@ -2246,10 +2297,10 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
     the bytes of q, k, v and the output: the fp32 one (4 * hd fp32
     operations per visible pair at the CUDA cores' fp32 peak) and the
     tensor-core one (tf32 and bf16 products at their published peaks,
-    :func:`flash_tensor_ops`, at every head dim), which is the row's bound;
-    the same products at the mma.sync ``rates`` measured here; and, at the
-    wide head dims, the wide kernel's own three tf32 products
-    (:func:`wide_tensor_ops`) at the published tf32 peak."""
+    :func:`flash_tensor_ops`, at every head dim: both kernels run just
+    these products), which is the row's bound; and the same products at the
+    mma.sync ``rates`` measured here. First the wide kernel's occupancy
+    (:func:`check_wide_occupancy`)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -2259,8 +2310,9 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
         attention_case,
         attention_inputs,
     )
-    from repro_torch.kernels.flash_attention import WIDE_HEAD_DIMS, flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention
 
+    wide_occupancy = check_wide_occupancy(torch, ptxas)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for name in sorted(ATTENTION_CASES):
         c = attention_case(name)
@@ -2304,8 +2356,6 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
         bound_ms, bound_by = bound(nbytes, flash_tensor_ops(hd, pairs), TF32_OPS_PER_S)
         mma_ms, _ = bound(nbytes, flash_tensor_ops(hd, pairs, 1e12 * rates["bf16"],
                                                    1e12 * rates["tf32"]), 1e12 * rates["tf32"])
-        wide = hd in WIDE_HEAD_DIMS
-        impl_ms = bound(nbytes, wide_tensor_ops(hd, pairs), TF32_OPS_PER_S)[0] if wide else None
         ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True, window=window))
         plain_ms = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, window=window),
                            reps=5, warmup=1, batch=1)
@@ -2316,20 +2366,17 @@ def check_flash_kernel(torch, dev, rates: dict[str, float]) -> dict:
                          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "bound_fp32_ms": fp32_ms,
                          "bound_fp32_by": fp32_by, "bound_mma_sync_ms": mma_ms,
-                         "bound_as_implemented_ms": impl_ms,
                          "fp32_tflops": 4 * hd * pairs / ms / 1e9, "max_abs_err": err}
-        impl = (f"; the wide kernel's three tf32 products a product at the tf32 peak "
-                f"{impl_ms:.4f} ms ({100 * impl_ms / ms:.1f}%)" if wide else "")
         print(f"flash_attention ({label} shape {B}x{H}x{S}x{hd}, KV {KV}, window {window}): "
               f"{ms:.4f} ms ({4 * hd * pairs / ms / 1e9:.1f} TFLOP/s of fp32 work); bound "
               f"{bound_ms:.4f} ms by {bound_by} (tf32 + bf16 tensor-core products at their "
               f"peaks; {100 * bound_ms / ms:.1f}% of it), fp32 bound {fp32_ms:.4f} ms by "
               f"{fp32_by} ({100 * fp32_ms / ms:.1f}%), at the measured mma.sync rates "
-              f"{mma_ms:.4f} ms ({100 * mma_ms / ms:.1f}%){impl}; plain {plain_ms:.4f} ms, "
+              f"{mma_ms:.4f} ms ({100 * mma_ms / ms:.1f}%); plain {plain_ms:.4f} ms, "
               f"SDPA {lib_ms:.4f} ms, max |err| {err:.3g}")
         del q, k, v
         release(torch)
-    return {"cases_max_abs_err": worst, **shapes}
+    return {"cases_max_abs_err": worst, "wide_occupancy": wide_occupancy, **shapes}
 
 
 def serve_phases(events: list[dict]) -> dict[str, float]:
@@ -3652,7 +3699,7 @@ def main(argv=None) -> int:
     table3_rows = table3(torch, bw8_message)
     del bw8_message
 
-    flash = check_flash_kernel(torch, dev, rates)
+    flash = check_flash_kernel(torch, dev, rates, ptxas_report(log))
     serve = {label: run_serve(torch, dev, label, window, batch, prompt, gen)
              for label, window, batch, prompt, gen in SERVE_RUNS}
     serve_cpu = check_serve_against_cpu(torch, dev)

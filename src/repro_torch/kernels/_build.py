@@ -48,9 +48,12 @@ _SIGNATURES = {
     "fb4_quantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
     "fb4_dequantize": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P],
     # q, k, v, o; B, H, KV, sq, sk, hd; bf16, causal, has_window; window;
-    # scale; stream
+    # scale; the layout's rows, warps; its shared bytes; stream
     "flash_attention_fwd": [_P, _P, _P, _P, *[ctypes.c_longlong] * 6,
-                            *[ctypes.c_int] * 3, ctypes.c_longlong, ctypes.c_float, _P],
+                            *[ctypes.c_int] * 3, ctypes.c_longlong, ctypes.c_float,
+                            *[ctypes.c_int] * 2, ctypes.c_longlong, _P],
+    # hd; bf16; out[4] (CTAs an SM, registers, local bytes, threads)
+    "flash_attention_occupancy": [ctypes.c_longlong, ctypes.c_int, _P],
     # gx, r, h_out, state; B, S, H, hd; bf16, split, threads; smem bytes; stream
     "slstm_scan_fwd": [_P, _P, _P, _P, *[ctypes.c_longlong] * 4, *[ctypes.c_int] * 3,
                        ctypes.c_longlong, _P],

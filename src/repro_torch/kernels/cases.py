@@ -218,13 +218,19 @@ ATTENTION_CASES: dict[str, tuple] = {
     "hd256_ragged_blind": (1, 2, 1, 136, 72, 256, "float32", True, 32),
     # six query heads a KV head at hd 128, as dbrx-132b's 48 over 8
     "group6_hd128": (1, 12, 2, 128, 128, 128, "float32", True, None),
+    # the wide kernel's edges: at hd 256 a window of 100 keys, which crosses
+    # its 16-key tiles and their 8-key halves, over three 64-row query tiles;
+    # GQA (four query heads a KV head) at hd 96
+    "hd256_window100_sq192": (1, 2, 1, 192, 192, 256, "float32", True, 100),
+    "hd96_group4_window40": (1, 8, 2, 128, 128, 96, "float32", True, 40),
 }
 #: the order that seeds each attention case's inputs: the first cases by
 #: name, then the later ones as they were added, so that adding a case
 #: leaves the inputs of the others as they were
 _ATTENTION_ADDED = ("window100_sq320", "bf16_hd128", "hd96", "hd256_mqa_window",
                     "hd256_non_causal", "hd256_cross_lengths", "bf16_hd96", "bf16_hd256",
-                    "hd96_ragged", "hd256_ragged_blind", "group6_hd128")
+                    "hd96_ragged", "hd256_ragged_blind", "group6_hd128",
+                    "hd256_window100_sq192", "hd96_group4_window40")
 ATTENTION_SEED_ORDER = (*sorted(set(ATTENTION_CASES) - set(_ATTENTION_ADDED)),
                         *_ATTENTION_ADDED)
 

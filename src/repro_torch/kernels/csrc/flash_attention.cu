@@ -661,128 +661,346 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// The wide head dims (96 and 256): a second, simpler kernel.
+// The wide head dims (96 and 256): flash_wide_kernel.
 //
-// The design above does not stretch to them. At hd 256 its five stage-sized
-// buffers take ~335 KB of shared memory, and a thread would hold Q (128
-// registers) beside its accumulators (128); at hd 96 its chunk split does not
-// divide. So these head dims take their own kernel, simple first:
-//   * One CTA of 4 warps per (query head, batch row, tile of 64 query rows),
-//     tiles reversed as above; warp w owns rows 16 w .. 16 w + 15.
-//   * Q, scaled by 1/sqrt(hd) (fp32) or widened (bf16), is staged once in
-//     shared memory at row stride hd + 4 and read back as A fragments at each
-//     k-step: only the accumulators (hd / 2 a thread) live in registers.
-//   * K/V tiles of 32 keys (16 for bf16 at hd 256), double-buffered with cp.async (16-byte, .cg; rows
-//     past Sk zero-filled), raw in shared memory: fp32 at row stride hd + 4,
-//     bf16 at hd + 8 elements. Every fragment read is free of bank conflicts.
-//   * fp32: each product is three tf32 mma.sync m16n8k8 (hi hi, hi lo, lo hi;
-//     x = hi + lo split at the fragment read). bf16 inputs are exact in tf32:
-//     Q K^T one product, P V two (P's hi and lo against V).
-//   * The online softmax, the masks (tiles outside a warp's band skipped,
-//     the per-element mask on the band's edge tiles only), the rows that see
-//     no key and the output are those of the kernel above; P is the A
-//     fragment of P V under the same permuted k (keys 2t, 2t + 1).
-// Shared memory: fp32 199,680 bytes at hd 256 and 76,800 at hd 96; bf16
-// 100,352 and 52,224.
+// The design above does not stretch to them: at hd 256 a warp of 16 rows
+// would hold Q's fragments (128 registers, 256 split) beside its O
+// accumulators (128), and 128 query rows' K/V stages take ~335 KB. This
+// kernel keeps that design's arithmetic and reshapes the work:
+//   * 8 warps a CTA, one CTA an SM (launch bounds (256, 1)): 8 warps on
+//     each SM at both head dims, in both types. A block of 16 query rows
+//     belongs to one warp at hd 96 (128 rows a CTA) and to a pair of warps
+//     at hd 256 (64 rows a CTA): each warp of the pair owns hd / 2 of the
+//     columns, both of Q (half of the Q K^T contraction) and of O (64
+//     accumulators, not 128). The pair adds its two partial score tiles
+//     through shared memory (one slot a warp, in slot order, a named
+//     barrier for the two warps), so both run the same softmax on the same
+//     bits, and each multiplies P by its own half of V.
+//   * Q stays in registers, scaled by 1/sqrt(hd) (fp32) or widened (bf16,
+//     exact in tf32, scaled on the scores). fp32 at hd 96 splits it once,
+//     into the tf32 hi fragment and the bf16 [hi | lo] fragment (96
+//     registers). At hd 256 a warp keeps its 64 raw values and splits them
+//     at each k-step: split once (128 registers), or its lo words kept in
+//     shared memory, the kernel spilled 12-32 bytes at 255 registers.
+//   * fp32 K and V are split once a tile, when the tile lands: tf32 hi in
+//     place, and a bf16 lo plane (K: lo of two head columns a word; V: lo
+//     of two keys a word, the pairs of the B fragment). The bf16 word of hi
+//     that the correction product takes is one cvt of the hi pair the tf32
+//     fragment has just read, so the lo plane is half the size of hi.
+//     tf32 rounding is two integer instructions (tf32_rna): on sm_90 the
+//     cvt.rna.tf32.f32 of the design above compiles to four.
+//   * fp32: two tensor-core instructions for each 8-deep step, as above:
+//     hi hi as tf32 m16n8k8 and hi lo + lo hi as one bf16 m16n8k16 over
+//     [hi | lo] against [lo ; hi]. That is chip_smoke.py's
+//     flash_tensor_ops, the kernel's bound. bf16 inputs are exact in tf32
+//     and read raw bf16 rows (widened by a shift): Q K^T one tf32 product,
+//     P V two (P's hi and lo against V).
+//   * Copies: a ring of 3 K/V stages filled by cp.async (16-byte, .cg;
+//     rows past Sk zero-filled). Iteration i starts the copy of tile
+//     i + 2 into the stage that tile i - 1 freed, waits for tile i + 1's
+//     (each thread its own chunks), splits it (fp32; V's rows in pairs) and
+//     multiplies tile i; one __syncthreads a tile publishes tile i + 1 and
+//     frees tile i's stage and lo plane set. So the copies run 2 tiles
+//     ahead, and every stage is live on every iteration.
+//     Tiles are 16 keys for fp32 at hd 256 and 32 otherwise.
+//   * Softmax and products overlap across warps: the two warps of an SM
+//     sub-partition take turns on the tensor pipe. Overlap inside a warp
+//     (running one tile ahead, the next tile's scores under this one's
+//     softmax; or the softmax in two halves) measured no faster at hd 96
+//     and 2-4 % slower at hd 256 on the card (PERF.md §6): its
+//     registers cost more than it hides. The rescale of O is skipped when
+//     no row's max moved (a factor of exactly 1).
+//   * The masks (tiles outside a block's band skipped, the per-element mask
+//     only on the band's edge tiles), the rows that see no key, the online
+//     softmax, the permuted k of the tf32 fragments (P's accumulators are
+//     P V's A fragment as they stand) and the output are those above.
+//     Positions are 32-bit (the launch refuses lengths from 2^30).
+//   * Fragment reads are free of bank conflicts: K hi at row stride hd + 8
+//     words (8-byte pairs), V hi at hd + 4, K lo at hd / 2 + 4, V lo at
+//     hd + 8; bf16 rows at hd + 8 elements.
+// Shared memory (WideLayout::kBytes; the wrapper's flash_attention.layout
+// gives the same numbers and this source refuses any other): 3 stages of
+// hi planes (or raw bf16 rows), 2 fp32 lo plane sets, the exchange slots
+// (hd 256): fp32 hd 96 104,960 bytes, hd 256 142,592; bf16 39,936 and
+// 117,760. Above the 48 KB default, hence cudaFuncSetAttribute.
+//
+// Why mma.sync and not wgmma: wgmma's tf32 form takes B K-major only (V
+// needs a transposed copy), and its descriptors and swizzled layouts could
+// not be tried off the card within this design's budget; the kernel runs
+// well below mma.sync's ~260 TFLOP/s of tf32 on this card (PERF.md).
 // ---------------------------------------------------------------------------
 
-constexpr int kWWarps = 4;
+constexpr int kWWarps = 8;
 constexpr int kWThreads = 32 * kWWarps;
-constexpr int kWBQ = 16 * kWWarps;   // query rows per CTA
+constexpr int kWStages = 3;   // K/V tiles in the cp.async ring
+constexpr int kWAhead = kWStages - 1;   // tiles the copies run ahead of the products
 
 template <typename T, int HD>
 struct WideLayout {
   static constexpr bool kF32 = std::is_same<T, float>::value;
-  // keys per K/V tile: 16 for bf16 at hd 256, whose 32-key tile spilled 8 bytes
-  static constexpr int kBK = !kF32 && HD == 256 ? 16 : 32;
-  static constexpr int kNT = kBK / 8;                // score n-tiles of 8 keys in a tile
-  static constexpr int QS = HD + 4;                  // fp32 row stride of Q
-  static constexpr int RS = kF32 ? HD + 4 : HD + 8;  // row stride of a K or V tile, in T
-  static constexpr size_t kQBytes = 4 * size_t(kWBQ) * QS;
-  static constexpr size_t kTileBytes = sizeof(T) * size_t(kBK) * RS;
-  // Q, then two buffers of (K tile, V tile)
-  static constexpr size_t kBytes = kQBytes + 4 * kTileBytes;
-  static_assert(HD % 16 == 0, "whole 16-byte chunks and 8-deep k-steps");
+  static constexpr int kSplit = HD == 256 ? 2 : 1;        // warps sharing a 16-row block
+  static constexpr int kCols = HD / kSplit;               // a warp's columns of Q and O
+  static constexpr int kRows = 16 * kWWarps / kSplit;     // query rows a CTA
+  static constexpr int kBK = kF32 && HD == 256 ? 16 : 32; // keys a K/V tile
+  static constexpr int kNT = kBK / 8;                     // score n-tiles a tile
+  static constexpr bool kQSplit = kF32 && HD == 96;       // Q split once, in registers
+  // fp32 row strides, in words: K hi, V hi, K lo (a bf16 pair of columns a
+  // word), V lo (a row a pair of keys, a bf16 pair of keys a word)
+  static constexpr int KS = HD + 8, VS = HD + 4, LKS = HD / 2 + 4, LVS = HD + 8;
+  static constexpr int RS = HD + 8;   // bf16 row stride, in elements
+  static constexpr int kKS = kF32 ? KS : RS;   // K's row stride in a stage, in T
+  static constexpr size_t kStageBytes =
+      kF32 ? 4 * size_t(kBK) * (KS + VS) : 2 * 2 * size_t(kBK) * RS;
+  static constexpr size_t kLoBytes = kF32 ? 4 * (size_t(kBK) * LKS + size_t(kBK / 2) * LVS) : 0;
+  static constexpr int kLoSets = kF32 ? 2 : 0;   // fp32 lo plane sets: tiles i, i + 1
+  static constexpr size_t kXBytes = kSplit > 1 ? 4 * size_t(kWWarps) * 16 * kBK : 0;
+  static constexpr size_t kBytes = kWStages * kStageBytes + kLoSets * kLoBytes + kXBytes;
+  static_assert(HD % 32 == 0 && kCols % 8 == 0, "conflict-free strides, whole k-steps");
   static_assert(kBytes <= 232448, "shared memory over a block's 227 KB");
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+// tf32(x) rounded to nearest, ties away from zero, as cvt.rna.tf32.f32 gives
+// it for every finite x, in two integer instructions: on sm_90 the cvt
+// compiles to four, a guard for inf and NaN among them. A NaN or inf x
+// still ends as a NaN product: lo = x - hi is NaN.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
 
-// keys [k0, k0 + kBK) of K and V into one buffer
+// q_frags with tf32_rna: the tf32 hi fragment and the bf16 [hi | lo] fragment
+// of four values x = (A[g][k], A[g+8][k], A[g][k'], A[g+8][k'])
+__device__ __forceinline__ void wide_frags(const float (&x)[4], uint32_t (&hi)[4],
+                                           uint32_t (&corr)[4]) {
+  float lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = tf32_rna(x[e]);
+    lo[e] = x[e] - __uint_as_float(hi[e]);
+  }
+  corr[0] = pack_bf16(__uint_as_float(hi[0]), __uint_as_float(hi[2]));
+  corr[1] = pack_bf16(__uint_as_float(hi[1]), __uint_as_float(hi[3]));
+  corr[2] = pack_bf16(lo[0], lo[2]);
+  corr[3] = pack_bf16(lo[1], lo[3]);
+}
+
+// x and y split as tf32 hi (returned in place) and their lo in bf16, one word
+__device__ __forceinline__ uint32_t wide_split2(float& x, float& y) {
+  const float hx = __uint_as_float(tf32_rna(x)), hy = __uint_as_float(tf32_rna(y));
+  const uint32_t w = pack_bf16(x - hx, y - hy);
+  x = hx;
+  y = hy;
+  return w;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// the named barrier of the N warps of a block of rows (ids 1..4; 0 is
+// __syncthreads)
+template <int N>
+__device__ __forceinline__ void block_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(32 * N) : "memory");
+}
+
+// Start the copy of keys [k0, k0 + kBK) of K and V into one stage: fp32 into
+// the padded hi planes, bf16 into padded raw rows. fp32 copies V's rows in
+// pairs (2 rp, 2 rp + 1) at one column chunk, since its split pairs keys.
 template <typename T, int HD>
-__device__ __forceinline__ void wide_issue(T* kdst, T* vdst, const T* kb, const T* vb,
-                                           long long k0, long long sk) {
+__device__ __forceinline__ void wide_issue(T* st, const T* kb, const T* vb, int k0, int sk) {
   using L = WideLayout<T, HD>;
-  constexpr int kE = 16 / sizeof(T);
-  constexpr int kCPR = HD / kE;
+  constexpr int kE = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr int kCPR = HD / kE;        // chunks per row
+  constexpr int kVS = L::kF32 ? L::VS : L::RS;
+  T* vdst = st + L::kBK * L::kKS;
+#pragma unroll
   for (int f = threadIdx.x; f < L::kBK * kCPR; f += kWThreads) {
     const int r = f / kCPR;
     const int c = (f % kCPR) * kE;
     const bool ok = k0 + r < sk;
-    const long long src = (ok ? k0 + r : 0) * HD + c;
-    cp_async16(kdst + r * L::RS + c, kb + src, ok);
-    cp_async16(vdst + r * L::RS + c, vb + src, ok);
+    cp_async16(st + r * L::kKS + c, kb + static_cast<long long>(ok ? k0 + r : 0) * HD + c, ok);
+  }
+#pragma unroll
+  for (int f = threadIdx.x; f < L::kBK / 2 * kCPR; f += kWThreads) {
+    const int rp = f / kCPR;
+    const int c = (f % kCPR) * kE;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int r = L::kF32 ? 2 * rp + s : rp + s * (L::kBK / 2);
+      const bool ok = k0 + r < sk;
+      cp_async16(vdst + r * kVS + c, vb + static_cast<long long>(ok ? k0 + r : 0) * HD + c, ok);
+    }
   }
 }
 
-// one tile of a warp: S = Q K^T, the masks, the online softmax, O += P V
-template <typename T, int HD, bool MASKED>
-__device__ __forceinline__ void wide_tile(const float* Qw, const T* Kt, const T* Vt,
-                                          float (&m)[2], float (&l)[2],
-                                          float (&acc)[HD / 8][4], long long k0,
-                                          long long ra, long long sk, int causal,
-                                          int has_window, long long window, float scale,
-                                          int g, int t) {
+// Split the chunks this thread copied (after its cp.async.wait_group): each
+// value to tf32 hi in place, and lo = x - hi (exact) in bf16 into the lo
+// planes: K's (row r, columns c, c + 1) at word r * LKS + c / 2, V's (keys
+// 2 rp, 2 rp + 1; column c) at word rp * LVS + c.
+template <int HD>
+__device__ __forceinline__ void wide_split(float* st, uint32_t* lo) {
+  using L = WideLayout<float, HD>;
+  constexpr int kCPR = HD / 4;
+  float* vh = st + L::kBK * L::KS;
+  uint32_t* vl = lo + L::kBK * L::LKS;
+#pragma unroll
+  for (int f = threadIdx.x; f < L::kBK * kCPR; f += kWThreads) {
+    const int r = f / kCPR;
+    const int c = (f % kCPR) * 4;
+    float4* p = reinterpret_cast<float4*>(st + r * L::KS + c);
+    float4 x = *p;
+    uint2 w;
+    w.x = wide_split2(x.x, x.y);
+    w.y = wide_split2(x.z, x.w);
+    *p = x;
+    *reinterpret_cast<uint2*>(lo + r * L::LKS + c / 2) = w;
+  }
+#pragma unroll
+  for (int f = threadIdx.x; f < L::kBK / 2 * kCPR; f += kWThreads) {
+    const int rp = f / kCPR;
+    const int c = (f % kCPR) * 4;
+    float4* p0 = reinterpret_cast<float4*>(vh + 2 * rp * L::VS + c);
+    float4* p1 = reinterpret_cast<float4*>(vh + (2 * rp + 1) * L::VS + c);
+    float4 x0 = *p0, x1 = *p1;
+    uint4 w;
+    w.x = wide_split2(x0.x, x1.x);
+    w.y = wide_split2(x0.y, x1.y);
+    w.z = wide_split2(x0.z, x1.z);
+    w.w = wide_split2(x0.w, x1.w);
+    *p0 = x0;
+    *p1 = x1;
+    *reinterpret_cast<uint4*>(vl + rp * L::LVS + c) = w;
+  }
+}
+
+// One tile as a warp reads it: its planes and the masks' arguments.
+struct WideTile {
+  const void* K;        // K rows (fp32: hi plane; bf16: raw)
+  const void* V;
+  const uint32_t* Kl;   // fp32 lo planes
+  const uint32_t* Vl;
+  int k0;
+  Mode mode;            // for this warp's block of rows
+};
+
+// What stays the same over a warp's walk.
+struct WideRows {
+  float4* xblk;         // the block's exchange slots, one a warp (hd 256)
+  int part;             // this warp's slot
+  int ra, sk, window;   // positions: the wrapper keeps lengths below 2^30
+  int causal, has_window, g, t, col0, bar;
+  float scale;          // applied to the scores of bf16 inputs
+};
+
+// The warp's partial S = Q K^T over its columns, every n-tile of the tile;
+// n-tile j holds
+// (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) of keys 8 j ...
+template <typename T, int HD, int QLR>
+__device__ __forceinline__ void wide_scores(float (&s)[WideLayout<T, HD>::kNT][4],
+                                            const uint32_t (&qa)[WideLayout<T, HD>::kCols / 8][4],
+                                            const uint32_t (&qc)[QLR][4], const WideTile& tile,
+                                            const WideRows& w) {
   using L = WideLayout<T, HD>;
   constexpr bool kF32 = L::kF32;
-  constexpr int kNT = L::kNT;
-  float s[kNT][4];
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll 4
-  for (int ks = 0; ks < HD / 8; ++ks) {
-    const int c0 = 8 * ks + t;
-    const float x[4] = {Qw[g * L::QS + c0], Qw[(g + 8) * L::QS + c0],
-                        Qw[g * L::QS + c0 + 4], Qw[(g + 8) * L::QS + c0 + 4]};
-    uint32_t ah[4], al[4];
+  // this lane's first K words: key g, columns col0 + 2t, + 1 (hi; fp32 lo
+  // word col0 / 2 + t); k-step ks and n-tile j add constant offsets
+  const int kcol = w.col0 + 2 * w.t;
+  const float* kh = static_cast<const float*>(tile.K) + w.g * L::KS + kcol;
+  const uint32_t* kl = tile.Kl + w.g * L::LKS + kcol / 2;
+  const __nv_bfloat16* kr = static_cast<const __nv_bfloat16*>(tile.K) + w.g * L::RS + kcol;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (kF32)
-        split(x[e], ah[e], al[e]);
-      else
-        ah[e] = __float_as_uint(x[e]);
+  for (int ks = 0; ks < L::kCols / 8; ++ks) {
+    uint32_t ah[4], ac[4];
+    if constexpr (L::kQSplit) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ah[e] = qa[ks][e];
+        ac[e] = qc[ks][e];
+      }
+    } else if constexpr (kF32) {
+      // split here, in the tile loop: hoisted out of it, both fragments
+      // would take 128 registers (the volatile asm keeps it here)
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t raw = qa[ks][e];
+        asm volatile("" : "+r"(raw));
+        x[e] = __uint_as_float(raw);
+      }
+      wide_frags(x, ah, ac);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ah[e] = qa[ks][e];
     }
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const T* kr = Kt + (8 * j + g) * L::RS + c0;
-      const float b0 = widen(kr[0]), b1 = widen(kr[4]);
+    for (int j = 0; j < L::kNT; ++j) {
       if constexpr (kF32) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split(b0, bh0, bl0);
-        split(b1, bh1, bl1);
-        mma(s[j], al, bh0, bh1);
-        mma(s[j], ah, bl0, bl1);
-        mma(s[j], ah, bh0, bh1);
+        const uint2 bh = *reinterpret_cast<const uint2*>(kh + 8 * j * L::KS + 8 * ks);
+        const uint32_t bl = kl[8 * j * L::LKS + 4 * ks];
+        mma_bf16(s[j], ac, bl, pack_bf16(__uint_as_float(bh.x), __uint_as_float(bh.y)));
+        mma(s[j], ah, bh.x, bh.y);
       } else {
-        mma(s[j], ah, __float_as_uint(b0), __float_as_uint(b1));
+        const uint32_t b = *reinterpret_cast<const uint32_t*>(kr + 8 * j * L::RS + 8 * ks);
+        mma(s[j], ah, b << 16, b & 0xffff0000u);
       }
     }
   }
+}
 
+// hd 256: the block's partial tiles, added in slot order in every warp of
+// the block (the same bits in each)
+template <typename T, int HD>
+__device__ __forceinline__ void wide_exchange(float (&s)[WideLayout<T, HD>::kNT][4],
+                                              const WideRows& w) {
+  using L = WideLayout<T, HD>;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < L::kNT; ++j)
+    w.xblk[(w.part * L::kNT + j) * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+  block_sync<L::kSplit>(w.bar);
+#pragma unroll
+  for (int j = 0; j < L::kNT; ++j) {
+    float4 x = w.xblk[j * 32 + lane];
+#pragma unroll
+    for (int p = 1; p < L::kSplit; ++p) {
+      const float4 y = w.xblk[(p * L::kNT + j) * 32 + lane];
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
+    }
+    s[j][0] = x.x;
+    s[j][1] = x.y;
+    s[j][2] = x.z;
+    s[j][3] = x.w;
+  }
+}
+
+// The masks (edge tiles only), the online softmax of rows g and g + 8 over
+// the tile, and O += P V over the warp's columns.
+template <typename T, int HD, bool MASKED>
+__device__ __forceinline__ void wide_softmax_pv(float (&s)[WideLayout<T, HD>::kNT][4],
+                                                float (&m)[2], float (&l)[2],
+                                                float (&acc)[WideLayout<T, HD>::kCols / 8][4],
+                                                const WideTile& tile, const WideRows& w) {
+  using L = WideLayout<T, HD>;
+  constexpr bool kF32 = L::kF32;
   float rmax[2] = {kMaskFill, kMaskFill};
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      float x = kF32 ? s[j][e] : s[j][e] * scale;
+      float x = kF32 ? s[j][e] : s[j][e] * w.scale;
       if constexpr (MASKED) {
-        const long long qi = ra + g + 8 * (e >> 1);
-        const long long ki = k0 + 8 * j + 2 * t + (e & 1);
-        const bool visible =
-            ki < sk && (!causal || ki <= qi) && (!has_window || qi - ki < window);
+        const int qi = w.ra + w.g + 8 * (e >> 1);
+        const int ki = tile.k0 + 8 * j + 2 * w.t + (e & 1);
+        const bool visible = ki < w.sk && (!w.causal || ki <= qi) &&
+                             (!w.has_window || qi - ki < w.window);
         x = visible ? x : kMaskFill;
       }
       s[j][e] = x;
@@ -797,190 +1015,290 @@ __device__ __forceinline__ void wide_tile(const float* Qw, const T* Kt, const T*
     l[rr] *= alpha[rr];
   }
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int j = 0; j < L::kNT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float p = expf(s[j][e] - m[e >> 1]);
       if constexpr (MASKED) {
-        if (k0 + 8 * j + 2 * t + (e & 1) >= sk) p = 0.f;
+        if (tile.k0 + 8 * j + 2 * w.t + (e & 1) >= w.sk) p = 0.f;
       }
       s[j][e] = p;
       l[e >> 1] += p;
     }
+  // alpha is exactly 1 for a row whose max did not move: skip the rescale
+  // when that holds for every row of the warp
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    acc[n][0] *= alpha[0];
-    acc[n][1] *= alpha[0];
-    acc[n][2] *= alpha[1];
-    acc[n][3] *= alpha[1];
+    for (int n = 0; n < L::kCols / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
   }
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    // P's A fragment under the permuted k: logical t <- key 2t, t + 4 <- key 2t + 1
-    uint32_t ph[4], pl[4];
-    split(s[j][0], ph[0], pl[0]);
-    split(s[j][2], ph[1], pl[1]);
-    split(s[j][1], ph[2], pl[2]);
-    split(s[j][3], ph[3], pl[3]);
-    const T* v0 = Vt + (8 * j + 2 * t) * L::RS + g;
+  for (int j = 0; j < L::kNT; ++j) {
+    const int row = 8 * j + 2 * w.t;   // keys 2t and 2t + 1 of the n-tile
+    uint32_t ph[4], pc[4];
+    if constexpr (kF32) {
+      wide_frags({s[j][0], s[j][2], s[j][1], s[j][3]}, ph, pc);
+      const float* v0 = static_cast<const float*>(tile.V) + row * L::VS + w.col0 + w.g;
+      const uint32_t* w0 = tile.Vl + (row / 2) * L::LVS + w.col0 + w.g;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const float b0 = widen(v0[8 * n]), b1 = widen(v0[L::RS + 8 * n]);
-      if constexpr (kF32) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split(b0, bh0, bl0);
-        split(b1, bh1, bl1);
-        mma(acc[n], pl, bh0, bh1);
-        mma(acc[n], ph, bl0, bl1);
-        mma(acc[n], ph, bh0, bh1);
-      } else {
-        mma(acc[n], pl, __float_as_uint(b0), __float_as_uint(b1));
+      for (int n = 0; n < L::kCols / 8; ++n) {
+        const float b0 = v0[8 * n], b1 = v0[L::VS + 8 * n];
+        mma_bf16(acc[n], pc, w0[8 * n], pack_bf16(b0, b1));
         mma(acc[n], ph, __float_as_uint(b0), __float_as_uint(b1));
+      }
+    } else {
+      // V is exact in tf32: P's two parts against it
+      const float x[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+      uint32_t pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ph[e] = tf32_rna(x[e]);
+        pl[e] = tf32_rna(x[e] - __uint_as_float(ph[e]));
+      }
+      const unsigned short* v0 = reinterpret_cast<const unsigned short*>(tile.V) +
+                                 row * L::RS + w.col0 + w.g;
+#pragma unroll
+      for (int n = 0; n < L::kCols / 8; ++n) {
+        const uint32_t b0 = uint32_t(v0[8 * n]) << 16;
+        const uint32_t b1 = uint32_t(v0[L::RS + 8 * n]) << 16;
+        mma(acc[n], pl, b0, b1);
+        mma(acc[n], ph, b0, b1);
       }
     }
   }
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kWThreads)
+__global__ void __launch_bounds__(kWThreads, 1)
 flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   T* __restrict__ o, int H, int group, long long sq, long long sk, int causal,
                   int has_window, long long window, float scale) {
   using L = WideLayout<T, HD>;
   constexpr bool kF32 = L::kF32;
-  constexpr int kWBK = L::kBK;
+  constexpr int kBK = L::kBK;
+  constexpr int kNT = L::kNT;
+  constexpr int kDK = L::kCols / 8;          // k-steps of Q K^T, n-tiles of O, a warp
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
-  float* Qs = reinterpret_cast<float*>(smem);
-  auto ktile = [&](int i) { return reinterpret_cast<T*>(smem + L::kQBytes + 2 * i * L::kTileBytes); };
-  auto vtile = [&](int i) {
-    return reinterpret_cast<T*>(smem + L::kQBytes + (2 * i + 1) * L::kTileBytes);
+  // tile i sits in stage i % kWStages and (fp32) lo plane set i % 2; the exchange
+  // slots follow
+  auto stage = [&](int i) {
+    return reinterpret_cast<T*>(smem + (i % kWStages) * L::kStageBytes);
   };
+  auto lo_set = [&](int i) {
+    return reinterpret_cast<uint32_t*>(smem + kWStages * L::kStageBytes + (i & 1) * L::kLoBytes);
+  };
+  float4* xslots =
+      reinterpret_cast<float4*>(smem + kWStages * L::kStageBytes + L::kLoSets * L::kLoBytes);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const int blk = warp / L::kSplit;          // the warp's block of 16 query rows
+  const int col0 = (warp % L::kSplit) * L::kCols;
   const long long h = blockIdx.x;
   const long long b = blockIdx.y;
-  const long long q0 = static_cast<long long>(gridDim.z - 1 - blockIdx.z) * kWBQ;
   const long long kv_head = b * (H / group) + h / group;
   const T* qb = q + (b * H + h) * sq * HD;
   const T* kb = k + kv_head * sk * HD;
   const T* vb = v + kv_head * sk * HD;
   T* ob = o + (b * H + h) * sq * HD;
+  // positions in 32 bits (the launch refuses lengths from 2^30); a window
+  // wider than Sq masks nothing and blinds no row, as Sq does
+  const int nq = static_cast<int>(sq), nk = static_cast<int>(sk);
+  const int win = !has_window || window < 1 ? 0 : window > sq ? nq : static_cast<int>(window);
+  const int q0 = static_cast<int>(gridDim.z - 1 - blockIdx.z) * L::kRows;
 
-  auto key_lo = [&](long long qi) {
-    return has_window && qi - window + 1 > 0 ? qi - window + 1 : 0LL;
-  };
-  auto key_hi = [&](long long qi) { return causal && qi < sk - 1 ? qi : sk - 1; };
-  const long long q_last = (q0 + kWBQ < sq ? q0 + kWBQ : sq) - 1;
-  long long k_begin = 0, k_end = sk;
-  if (!(has_window && (window < 1 || q_last >= sk + window - 1))) {
+  auto key_lo = [&](int qi) { return has_window && qi - win + 1 > 0 ? qi - win + 1 : 0; };
+  auto key_hi = [&](int qi) { return causal && qi < nk - 1 ? qi : nk - 1; };
+  // row qi sees no key: qi >= Sk + window - 1
+  auto is_blind = [&](int qi) { return has_window && (win < 1 || qi - win + 1 >= nk); };
+  const int q_last = (q0 + L::kRows < nq ? q0 + L::kRows : nq) - 1;
+  int k_begin = 0, k_end = nk;
+  if (!is_blind(q_last)) {
     k_begin = key_lo(q0);
     k_end = key_hi(q_last) + 1;
   }
-  const long long ra = q0 + 16 * warp;
-  const long long rz = (ra + 15 < sq ? ra + 15 : sq - 1);
-  const bool warp_blind = has_window && (window < 1 || rz >= sk + window - 1);
+  const int ra = q0 + 16 * blk;
+  const int rz = (ra + 15 < nq ? ra + 15 : nq - 1);
+  const bool blind = is_blind(rz);
 
-  const long long tile0 = k_begin / kWBK;
-  const int ntiles = static_cast<int>((k_end + kWBK - 1) / kWBK - tile0);
-  if (ntiles > 0) wide_issue<T, HD>(ktile(0), vtile(0), kb, vb, tile0 * kWBK, sk);
-  cp_async_commit();
-
-  // Q into shared memory: fp32 scaled once, bf16 widened (scaled on the scores)
-  const float qs = kF32 ? scale : 1.f;
-  for (int f = threadIdx.x; f < kWBQ * HD / 2; f += kWThreads) {
-    const int r = f / (HD / 2);
-    const int c = 2 * (f % (HD / 2));
-    const float2 x = q0 + r < sq ? load2(qb + (q0 + r) * HD + c) : make_float2(0.f, 0.f);
-    *reinterpret_cast<float2*>(Qs + r * L::QS + c) = make_float2(x.x * qs, x.y * qs);
+  // the first kWAhead tiles' copies start before Q is loaded
+  const int tile0 = k_begin / kBK;
+  const int ntiles = (k_end + kBK - 1) / kBK - tile0;
+#pragma unroll
+  for (int i = 0; i < kWAhead; ++i) {
+    if (i < ntiles) wide_issue<T, HD>(stage(i), kb, vb, (tile0 + i) * kBK, nk);
+    cp_async_commit();
   }
-  const float* Qw = Qs + 16 * warp * L::QS;
 
+  // Q fragments of this lane: rows ra + g and ra + g + 8, columns
+  // col0 + 8 ks + 2t, + 1 (the permuted k: a0 / a2 hold 2t / 2t + 1 of row g)
+  uint32_t qa[kDK][4];
+  uint32_t qc[L::kQSplit ? kDK : 1][4];
+  {
+    const int r0 = ra + g, r1 = ra + g + 8;
+    const float qs = kF32 ? scale : 1.f;
+#pragma unroll
+    for (int ks = 0; ks < kDK; ++ks) {
+      const int d = col0 + 8 * ks + 2 * t;
+      const float2 x0 = r0 < nq ? load2(qb + static_cast<long long>(r0) * HD + d)
+                                : make_float2(0.f, 0.f);
+      const float2 x1 = r1 < nq ? load2(qb + static_cast<long long>(r1) * HD + d)
+                                : make_float2(0.f, 0.f);
+      const float x[4] = {x0.x * qs, x1.x * qs, x0.y * qs, x1.y * qs};
+      if constexpr (L::kQSplit) {
+        wide_frags(x, qa[ks], qc[ks]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[ks][e] = __float_as_uint(x[e]);
+      }
+    }
+  }
+
+  const WideRows rows = {xslots + 32 * kNT * L::kSplit * blk, warp % L::kSplit, ra, nk, win,
+                         causal, has_window, g, t, col0, 1 + blk, scale};
   float m[2] = {kMaskFill, kMaskFill};
   float l[2] = {0.f, 0.f};
-  float acc[HD / 8][4];
+  float acc[kDK][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < kDK; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  cp_async_wait<kWAhead - 1>();
+  if constexpr (kF32) {
+    if (ntiles > 0) wide_split<HD>(stage(0), lo_set(0));
+  }
+  __syncthreads();
 
   for (int i = 0; i < ntiles; ++i) {
-    if (i + 1 < ntiles)
-      wide_issue<T, HD>(ktile((i + 1) & 1), vtile((i + 1) & 1), kb, vb,
-                        (tile0 + i + 1) * kWBK, sk);
+    if (i + kWAhead < ntiles)
+      wide_issue<T, HD>(stage(i + kWAhead), kb, vb, (tile0 + i + kWAhead) * kBK, nk);
     cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();   // tile i (and, first time round, Q) visible to every warp
-    const long long k0 = (tile0 + i) * kWBK;
-    const long long kz = k0 + kWBK - 1;
-    Mode mode = kEdge;
-    if (ra >= sq) {
-      mode = kSkip;
-    } else if (!warp_blind) {
-      if (k0 > key_hi(rz) || kz < key_lo(ra))
-        mode = kSkip;
-      else if (kz < sk && key_lo(rz) <= k0 && kz <= key_hi(ra))
-        mode = kFull;
+    cp_async_wait<kWAhead - 1>();
+    // past the last tile, a stage that is not in use is split again to no
+    // effect (tf32 rounding is idempotent; the lo set it writes is free),
+    // which keeps the split unconditional
+    if constexpr (kF32) wide_split<HD>(stage(i + 1), lo_set(i + 1));
+    T* st = stage(i);
+    const uint32_t* lo = lo_set(i);
+    WideTile tile = {st, st + kBK * L::kKS, lo, lo + kBK * L::LKS, (tile0 + i) * kBK, kEdge};
+    const int kz = tile.k0 + kBK - 1;
+    if (ra >= nq) {
+      tile.mode = kSkip;
+    } else if (!blind) {
+      if (tile.k0 > key_hi(rz) || kz < key_lo(ra))
+        tile.mode = kSkip;
+      else if (kz < nk && key_lo(rz) <= tile.k0 && kz <= key_hi(ra))
+        tile.mode = kFull;
     }
-    if (mode == kFull)
-      wide_tile<T, HD, false>(Qw, ktile(i & 1), vtile(i & 1), m, l, acc, k0, ra, sk, causal,
-                              has_window, window, scale, g, t);
-    else if (mode == kEdge)
-      wide_tile<T, HD, true>(Qw, ktile(i & 1), vtile(i & 1), m, l, acc, k0, ra, sk, causal,
-                             has_window, window, scale, g, t);
-    __syncthreads();   // buffer i & 1 is free for tile i + 2
+    if (tile.mode != kSkip) {
+      float s[kNT][4];
+      wide_scores<T, HD>(s, qa, qc, tile, rows);
+      if constexpr (L::kSplit > 1) wide_exchange<T, HD>(s, rows);
+      if (tile.mode == kFull)
+        wide_softmax_pv<T, HD, false>(s, m, l, acc, tile, rows);
+      else
+        wide_softmax_pv<T, HD, true>(s, m, l, acc, tile, rows);
+    }
+    __syncthreads();   // tile i + 1 is split; tile i's stage, lo set and the slots are free
   }
 
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    const long long qi = ra + g + 8 * rr;
+    const int qi = ra + g + 8 * rr;
     const float denom = fmaxf(quad_sum(l[rr]), 1e-30f);
-    if (qi >= sq) continue;
+    if (qi >= nq) continue;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-      store2(ob + qi * HD + 8 * n + 2 * t, acc[n][2 * rr] / denom, acc[n][2 * rr + 1] / denom);
+    for (int n = 0; n < kDK; ++n)
+      store2(ob + static_cast<long long>(qi) * HD + col0 + 8 * n + 2 * t,
+             acc[n][2 * rr] / denom, acc[n][2 * rr + 1] / denom);
   }
 }
 
-// one grid (H, B, query tiles) of the head dim's kernel: flash_wide_kernel
-// (64 query rows, kWThreads) at the wide head dims, else flash_fwd_kernel
-// (128 rows, kThreads)
+// The launch configuration of one head dim and type: flash_wide_kernel at
+// the wide head dims, else flash_fwd_kernel.
+struct Config {
+  int rows, warps;
+  long long smem;
+};
+
+template <typename T, int HD>
+constexpr Config config() {
+  if constexpr (HD == 96 || HD == 256)
+    return {WideLayout<T, HD>::kRows, kWWarps, static_cast<long long>(WideLayout<T, HD>::kBytes)};
+  else
+    return {kBQ, kWarps, static_cast<long long>(Layout<T, HD>::kBytes)};
+}
+
+template <typename T>
+using KernelT = void (*)(const T*, const T*, const T*, T*, int, int, long long, long long, int,
+                         int, long long, float);
+
+template <typename T, int HD>
+KernelT<T> kernel_of() {
+  if constexpr (HD == 96 || HD == 256)
+    return flash_wide_kernel<T, HD>;
+  else
+    return flash_fwd_kernel<T, HD>;
+}
+
+// one grid (H, B, query tiles) of the head dim's kernel, after checking the
+// caller's layout (rows, warps, shared bytes) against this source's
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, long long B, long long H,
            long long KV, long long sq, long long sk, int causal, int has_window,
-           long long window, float scale, cudaStream_t stream) {
-  using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, long long, long long, int,
-                          int, long long, float);
-  Kernel kernel;
-  size_t bytes;
-  int rows, threads;
-  if constexpr (HD == 96 || HD == 256) {
-    kernel = flash_wide_kernel<T, HD>;
-    bytes = WideLayout<T, HD>::kBytes;
-    rows = kWBQ;
-    threads = kWThreads;
-  } else {
-    kernel = flash_fwd_kernel<T, HD>;
-    bytes = Layout<T, HD>::kBytes;
-    rows = kBQ;
-    threads = kThreads;
-  }
-  const long long tiles = (sq + rows - 1) / rows;
+           long long window, float scale, int rows, int warps, long long smem,
+           cudaStream_t stream) {
+  constexpr Config c = config<T, HD>();
+  if (rows != c.rows || warps != c.warps || smem != c.smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (sq + c.rows - 1) / c.rows;
   if (B >= 65536 || tiles >= 65536 || H >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  if ((HD == 96 || HD == 256) && (sq >= (1LL << 30) || sk >= (1LL << 30)))
+    return static_cast<int>(cudaErrorInvalidValue);   // flash_wide_kernel's 32-bit positions
+  const KernelT<T> kernel = kernel_of<T, HD>();
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(c.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
                   static_cast<unsigned>(tiles));
-  kernel<<<grid, threads, bytes, stream>>>(
+  kernel<<<grid, 32 * c.warps, c.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<int>(H), static_cast<int>(H / KV), sq, sk, causal,
       has_window, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// what the card makes of the head dim's kernel: CTAs an SM, registers and
+// local (spill) bytes a thread, threads a CTA
+template <typename T, int HD>
+int occupancy(int* out) {
+  constexpr Config c = config<T, HD>();
+  const void* kernel = reinterpret_cast<const void*>(kernel_of<T, HD>());
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(c.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * c.warps,
+                                                      static_cast<size_t>(c.smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = 32 * c.warps;
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
@@ -989,18 +1307,21 @@ extern "C" {
 
 // q: (B,H,sq,hd), k/v: (B,KV,sk,hd), o: (B,H,sq,hd); fp32 (bf16 = 0) or bf16
 // (bf16 = 1); hd 64 or 128 (flash_fwd_kernel) or 96 or 256 (flash_wide_kernel);
-// window used when has_window; scale = 1/sqrt(hd). B < 65536 and the query
-// tiles ceil(sq / 128) (hd 64, 128) or ceil(sq / 64) (hd 96, 256) < 65536 (the
-// grid's y and z).
+// window used when has_window; scale = 1/sqrt(hd); rows, warps, smem: the
+// caller's layout of the kernel (flash_attention.layout), refused unless it is
+// this source's. B < 65536 and the query tiles ceil(sq / rows) < 65536 (the
+// grid's y and z): rows is 128 at hd 64, 96 and 128, and 64 at hd 256.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         long long B, long long H, long long KV, long long sq,
                         long long sk, long long hd, int bf16, int causal,
-                        int has_window, long long window, float scale, void* stream) {
+                        int has_window, long long window, float scale, int rows, int warps,
+                        long long smem, void* stream) {
   if (B <= 0 || H <= 0 || sq <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || H % KV != 0 || sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_LAUNCH(T, HD) \
-  launch<T, HD>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window, scale, s)
+#define FLASH_LAUNCH(T, HD)                                                                   \
+  launch<T, HD>(q, k, v, o, B, H, KV, sq, sk, causal, has_window, window, scale, rows, warps, \
+                smem, s)
   switch (hd) {
     case 64: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 64) : FLASH_LAUNCH(float, 64);
     case 96: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 96) : FLASH_LAUNCH(float, 96);
@@ -1008,6 +1329,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 256: return bf16 ? FLASH_LAUNCH(__nv_bfloat16, 256) : FLASH_LAUNCH(float, 256);
   }
 #undef FLASH_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// out[0..3]: CTAs an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
+// kernel's threads and shared bytes), registers a thread, local bytes a thread
+// (spills; cudaFuncGetAttributes), threads a CTA
+int flash_attention_occupancy(long long hd, int bf16, int* out) {
+  switch (hd) {
+    case 64: return bf16 ? occupancy<__nv_bfloat16, 64>(out) : occupancy<float, 64>(out);
+    case 96: return bf16 ? occupancy<__nv_bfloat16, 96>(out) : occupancy<float, 96>(out);
+    case 128: return bf16 ? occupancy<__nv_bfloat16, 128>(out) : occupancy<float, 128>(out);
+    case 256: return bf16 ? occupancy<__nv_bfloat16, 256>(out) : occupancy<float, 256>(out);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,7 +10,8 @@ places where a case holds NaN (a NaN's payload bits are not compared: the card's
 arithmetic returns its canonical NaN). Flash attention is held to the
 tolerances ``kernels/cases.py`` states (``ATTENTION_TOL``, which
 ``chip_smoke.py`` uses too) at head dims 64, 96, 128 and 256, refuses
-another, and its backward must raise; so is the sLSTM scan
+another head dim and any layout but its own, holds 8 warps on an SM at
+the wide head dims, and its backward must raise; so is the sLSTM scan
 (``SLSTM_TOL``, h and the final state), at
 head dims that take each cluster layout too, whose backward must raise.
 Each new model family (MoE, hybrid, enc-dec, VLM and the dense configs)
@@ -57,6 +58,8 @@ from repro_torch.kernels.cases import (  # noqa: E402
     slstm_inputs,
     subnormal_accumulator,
 )
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.quant_blockwise8 import (  # noqa: E402
     dequantize_blockwise8,
@@ -182,6 +185,34 @@ def test_flash_kernel_matches_its_plain_version_on_the_card(cuda, name):
     assert out.dtype == dtype and out.shape == q.shape
     atol, rtol = ATTENTION_TOL[c["dtype"]]
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_refuses_a_layout_that_is_not_its_own_on_the_card(cuda, hd, dtype):
+    """The source recomputes the wrapper's layout and refuses a launch with
+    any other rows, warps or shared bytes (the launch never runs)."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.zeros((1, 2, 64, hd), device=cuda, dtype=dt) for _ in range(3))
+    out = torch.empty_like(q)
+    lay = FA.layout(hd, dt)
+    for rows, warps, smem in ((lay.rows * 2, lay.warps, lay.smem_bytes),
+                              (lay.rows, lay.warps // 2, lay.smem_bytes),
+                              (lay.rows, lay.warps, lay.smem_bytes + 16)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            _build.launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), out.data_ptr(), 1, 2, 2, 64, 64, hd,
+                          int(dt == torch.bfloat16), 1, 0, 0, hd ** -0.5, rows, warps, smem)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_flash_kernel_holds_8_warps_an_sm_without_spills_on_the_card(cuda, hd, dtype):
+    occ = FA.occupancy(hd, getattr(torch, dtype))
+    assert occ["warps_per_sm"] >= 8, occ
+    assert occ["local_bytes"] == 0, occ
 
 
 @pytest.mark.cuda

@@ -39,7 +39,8 @@ from repro_torch.kernels.cases import attention_case, attention_inputs  # noqa: 
 SUBSET = ("group2", "group8", "non_causal", "window32", "cross_lengths",
           "fully_masked_rows", "bf16", "window100_sq320", "bf16_hd128",
           "hd96", "hd256_mqa_window", "hd256_non_causal", "hd256_cross_lengths",
-          "bf16_hd96", "bf16_hd256", "group6_hd128")
+          "bf16_hd96", "bf16_hd256", "group6_hd128", "hd256_window100_sq192",
+          "hd96_group4_window40")
 TOL_PALLAS = {"float32": 2e-3, "bfloat16": 2e-2}
 
 
@@ -137,6 +138,8 @@ def _meta(*shape, dtype=torch.float32):
      "batch 65536"),
     ((_meta(1, 1, 128 * 65536, 64), _meta(1, 1, 64, 64), _meta(1, 1, 64, 64)),
      "query tiles"),
+    ((_meta(1, 1, 64, 256), _meta(1, 1, 2**30, 256), _meta(1, 1, 2**30, 256)),
+     "key length"),
     ((_meta(1, 4, 128, 64), _meta(1, 2, 128, 64), _meta(1, 2, 128, 64)), "CUDA tensor"),
 ])
 def test_non_cpu_tensors_are_checked_and_never_fall_back(bad, match):

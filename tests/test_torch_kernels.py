@@ -187,7 +187,8 @@ def test_kernels_build_from_the_repo_source():
     src = "".join(p.read_text() for p in _build.SOURCES)
     assert set(_build._SIGNATURES) == {"bw8_quantize", "bw8_dequantize", "bw8_fold",
                                        "bw8_agg", "fb4_quantize", "fb4_dequantize",
-                                       "flash_attention_fwd", "slstm_scan_fwd"}
+                                       "flash_attention_fwd", "flash_attention_occupancy",
+                                       "slstm_scan_fwd"}
     for entry in _build._SIGNATURES:
         assert f"int {entry}(" in src, entry
 
