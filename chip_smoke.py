@@ -139,6 +139,24 @@ with subprocess clients on the card (``--verify-sim``,
 (D) full-width checkpoints in blockwise8 and nf4 (B1/B2, B4/B5 one an
 item; files bitwise the ones the CPU writes) and a ``--resume``.
 
+Then the centralized trainer (``repro_torch.launch.train.train_loop``,
+seed 0, 4 steps, TF32 off, each step's loss logged): (T1) full-width
+llama3.2-1b at batch 4 x 192, xlstm-125m at 4 x 192, whisper-small at 4 x
+192 with 1,500 zero frames and recurrentgemma-2b at 1 x 192, all uncut,
+each with the counters zeroed before and no kernel launched after (every
+length takes the masked softmax: B7 has no gradient, ROADMAP C13), finite
+losses, every leaf moved, step ms (the ``train.step`` spans, median of
+steps 1-3), tokens/s and the device peak; llama3.2-1b once more with
+remat off, its peak and step beside remat on's; (T2) one family each
+(dense, MoE, VLM, ssm, hybrid, enc-dec) at smoke width, the first
+gradient leaf by leaf and three steps card vs CPU from the same weights
+within the CPU tests' tolerances; (T3) a
+smoke-width step at seq 128, which routes attention to B7 and must raise
+NotImplementedError in the backward; (T4) the first path's spec with
+xlstm-125m at full width (B1, B2 and B3 as its 33 items imply) and the
+xlstm-125m and recurrentgemma-2b smoke specs with fixed updates card vs
+CPU, bitwise.
+
 ``--svd-drivers`` also times both exact cuSOLVER SVD drivers (``gesvd``,
 ``gesvdj``) once on the largest decomposed item, the measurement that
 chose ``ops.SVD_DRIVER``.
@@ -330,6 +348,39 @@ XLSTM_CPU_PROMPT = 200
 FL_SPANS = ("fl.round", "fl.local_train", "coll.quantize", "coll.all_gather",
             "kernel.dequant_accumulate8")
 AGG_CHUNK_BLOCKS = 1 << 15         # blocks per plain-version call of the K-way sum
+
+#: the centralized trainer (launch/train.py) at full width, seed 0:
+#: (label, arch, batch, seq, layers or None for the published depth). Every
+#: length routes attention to the masked softmax (ROADMAP C13: B7 has no
+#: gradient, as the reference's Pallas kernel has none): 192 tokens, and
+#: whisper-small's 1,500 zero frames in its encoder. recurrentgemma-2b
+#: (2.7B parameters, ~43 GB of AdamW state in fp32) at batch 1, uncut
+TRAIN_RUNS = (("train_llama", "llama3.2-1b", 4, 192, None),
+              ("train_xlstm", "xlstm-125m", 4, 192, None),
+              ("train_encdec", "whisper-small", 4, 192, None),
+              ("train_griffin", "recurrentgemma-2b", 1, 192, None))
+#: steps a run: step 0 trains at lr 0 (the schedule reads the step before
+#: the update), so weights move from step 1; step ms is the median of 1-3
+TRAIN_STEPS = 4
+#: one family each at smoke width, card vs CPU: the first gradient and
+#: three train_loop steps from the same weights at batch 2 x 32 tokens
+#: (phi-3-vision's 16 patches make 48 rows, no multiple of 128); held to
+#: the CPU tests' tolerances (tests/test_torch_train.py): each gradient
+#: leaf within 1e-5 of its own largest, histories within 1e-5 relative,
+#: weights under testing.trained_counts
+TRAIN_SMOKE = (("dense", "llama3.2-1b"), ("moe", "dbrx-132b"), ("vlm", "phi-3-vision-4.2b"),
+               ("ssm", "xlstm-125m"), ("hybrid", "recurrentgemma-2b"),
+               ("encdec", "whisper-small"))
+TRAIN_SMOKE_SEQ = 32
+#: three steps, so the last loss is taken after an update (step 0 runs at lr 0)
+TRAIN_SMOKE_STEPS = 3
+TRAIN_HISTORY_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-5
+#: a federated round over another family: the first path's spec with
+#: xlstm-125m at full width; and the smoke specs whose fixed-update runs
+#: must give the CPU's bits on the card
+FAMILY_JOB_ARCH = "xlstm-125m"
+FAMILY_JOB_SMOKE = ("xlstm-125m", "recurrentgemma-2b")
 
 BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
 FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
@@ -857,9 +908,11 @@ def phase_times(events: list[dict], fold: bool) -> dict[str, float]:
     return phases
 
 
-def run_path(torch, dev, label: str, spec: dict, want: dict[str, int]) -> dict:
+def run_path(torch, dev, label: str, spec: dict, want: dict[str, int],
+             n_items: int = N_ITEMS) -> dict:
     """One main path: one full-width federated round with the launch
-    counters zeroed just before it and read just after."""
+    counters zeroed just before it and read just after; the model's flat
+    state has ``n_items`` items."""
     from repro_torch.fl.job import build_job
     from repro_torch.kernels import ops
 
@@ -886,7 +939,7 @@ def run_path(torch, dev, label: str, spec: dict, want: dict[str, int]) -> dict:
     if len(losses) != clients * rounds or not all(math.isfinite(x) for x in losses):
         fail(f"{label}: losses not finite: {losses}")
     final, init = result["final_weights"], job.init_weights
-    if list(final) != list(init) or len(final) != N_ITEMS:
+    if list(final) != list(init) or len(final) != n_items:
         fail(f"{label}: final weights do not have the initial weights' names")
     moved = 0
     for name, w in final.items():
@@ -3627,6 +3680,236 @@ def check_checkpoints(torch, dev) -> dict:
     return report
 
 
+def bits_sum(torch, t):
+    """The int64 sum of a tensor's 32-bit patterns, on its device: a leaf
+    whose sum changed has moved (a copy to the host to compare would cost
+    seconds at full width)."""
+    return t.contiguous().view(torch.int32).sum(dtype=torch.int64)
+
+
+def train_step_spans(events: list[dict]) -> list[float]:
+    """Each ``train.step`` span's wall ms, in order."""
+    return [e["dur"] / 1e3 for e in events if e.get("ph") == "X" and e["name"] == "train.step"]
+
+
+def run_train(torch, dev, label: str, arch: str, batch: int, seq: int, layers,
+              remat: bool = True) -> dict:
+    """(T1) ``launch.train.train_loop`` on ``arch`` at full width (``layers``
+    cuts the depth) from seeded weights, with zero frames or patches for
+    the enc-dec and the VLM, the launch counters zeroed just before and
+    read just after: no kernel launches (B7 has no gradient and every
+    length here takes the masked softmax). Losses must be finite and
+    every leaf must have moved. Step ms comes
+    from the ``train.step`` spans (each ends in a synchronise), the peak
+    from ``max_memory_allocated``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import create_model
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.utils.trees import flatten_state_dict
+
+    cfg = get_config(arch).with_overrides(remat=remat)
+    if layers is not None:
+        cfg = cfg.with_overrides(num_layers=layers)
+    params = create_model(cfg).init(0, dev)
+    initial = {k: bits_sum(torch, v) for k, v in flatten_state_dict(params).items()}
+    extra = family_extra(torch, cfg, batch, "cpu")
+    extra = None if extra is None else {k: v.numpy() for k, v in extra.items()}
+    torch.cuda.synchronize()
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    tracer = obs_trace.Tracer(sync=torch.cuda.synchronize)
+    ops.reset_launch_counts()
+    print(f"{label}: {arch}{'' if remat else ' (remat off)'}, batch {batch} x {seq}"
+          f"{'' if extra is None else ' + ' + str(list(extra))}, {TRAIN_STEPS} steps:")
+    t0 = time.perf_counter()
+    with obs_trace.activate(tracer):
+        params, history = train_loop(cfg, steps=TRAIN_STEPS, batch_size=batch, seq_len=seq,
+                                     params=params, log_every=1, extra_batch=extra,
+                                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        fail(f"{label}: kernels launched on the training path: {launches}")
+    if len(history) != TRAIN_STEPS or not all(math.isfinite(x) for x in history):
+        fail(f"{label}: losses not finite: {history}")
+    final = flatten_state_dict(params)
+    moved = sum(not torch.equal(bits_sum(torch, final[k].detach()), v)
+                for k, v in initial.items())
+    if moved != len(initial):
+        fail(f"{label}: only {moved} of {len(initial)} leaves moved")
+    step_ms = train_step_spans(tracer.chrome_trace()["traceEvents"])
+    median_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    n_params = sum(v.numel() for v in final.values())
+    report = {"arch": arch, "layers": cfg.num_layers, "params": n_params, "batch": batch,
+              "seq": seq, "remat": remat, "losses": history,
+              "step_ms": step_ms, "median_step_ms": median_ms,
+              "tokens_per_s": batch * seq / (median_ms / 1e3), "wall_s": wall,
+              "launches": launches, "max_memory_allocated_bytes": peak,
+              "allocated_before_bytes": allocated_before}
+    print(f"{label}: {n_params} params ({cfg.num_layers} layers), step ms "
+          f"{[round(x, 3) for x in step_ms]}, median of steps 1-{TRAIN_STEPS - 1} "
+          f"{median_ms:.3f} ms, {report['tokens_per_s']:.1f} tokens/s, wall {wall:.3f} s; "
+          f"max_memory_allocated {peak} bytes ({allocated_before} before); no kernel launched")
+    del params, final, initial
+    release(torch)
+    return report
+
+
+def first_gradients(torch, model, init: dict, batch: dict, dev) -> dict:
+    """``model``'s loss gradient at the flat weights ``init`` on ``batch``,
+    computed on ``dev``, as a flat dict of CPU tensors."""
+    from repro_torch.utils.trees import flatten_state_dict, tree_leaves, unflatten_state_dict
+
+    params = unflatten_state_dict({k: v.to(dev).clone().requires_grad_(True)
+                                   for k, v in init.items()})
+    loss = model.loss(params, {k: v.to(dev) for k, v in batch.items()})[0]
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return {k: g.detach().cpu() for k, g in zip(flatten_state_dict(params), grads)}
+
+
+def check_train_against_cpu(torch, dev) -> dict:
+    """(T2) Each family of :data:`TRAIN_SMOKE` at smoke width, from the
+    same seeded weights on the CPU and on the card, random frames /
+    patches from a seed: the first step's gradient leaf by leaf
+    (``testing.gradient_counts``: each leaf within :data:`TRAIN_GRAD_TOL`
+    of its own largest, a leaf whose exact gradient is zero below
+    ``testing.RESIDUE`` of the whole on both), then :data:`TRAIN_SMOKE_STEPS`
+    ``train_loop`` steps: loss histories within :data:`TRAIN_HISTORY_TOL`
+    relative (the last loss is taken after an update) and the weights
+    under ``testing.trained_counts`` (C1's bound; a zero-gradient leaf
+    within AdamW's sign-flip term), the CPU tests' tolerances."""
+    from repro_torch import testing
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import create_model
+    from repro_torch.utils.trees import flatten_state_dict
+
+    steps, batch, lr = TRAIN_SMOKE_STEPS, 2, 3e-4
+    report = {}
+    for family, arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        model = create_model(cfg)
+        zero = testing.zero_gradient_leaves(cfg)
+        init = flatten_state_dict(model.init(0, "cpu"))
+        extra = family_extra(torch, cfg, batch, "cpu", np.random.default_rng(5))
+        extra = None if extra is None else {k: v.numpy() for k, v in extra.items()}
+        first = {k: torch.as_tensor(v).long() for k, v in
+                 SyntheticLMDataset(cfg.vocab_size, TRAIN_SMOKE_SEQ, seed=0).sample(batch).items()}
+        first.update({k: torch.from_numpy(v) for k, v in (extra or {}).items()})
+        grads = testing.gradient_counts(first_gradients(torch, model, init, first, "cpu"),
+                                        first_gradients(torch, model, init, first, dev),
+                                        zero, TRAIN_GRAD_TOL)
+        outs = {}
+        for d in ("cpu", dev):
+            params, history = train_loop(cfg, steps=steps, batch_size=batch,
+                                         seq_len=TRAIN_SMOKE_SEQ, lr=lr,
+                                         params={k: v.clone() for k, v in init.items()},
+                                         log_every=0, extra_batch=extra, device=d)
+            outs[str(d)] = ({k: v.detach().cpu() for k, v in flatten_state_dict(params).items()},
+                            history)
+        (want, want_h), (got, got_h) = outs["cpu"], outs[str(dev)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got_h, want_h))
+        counts = testing.trained_counts(want, got, zero, sign_flips=2 * lr * steps)
+        if not grads["holds"]:
+            fail(f"train {family} ({arch}) card vs CPU: first gradients {grads}")
+        if rel > TRAIN_HISTORY_TOL or not counts["holds"]:
+            fail(f"train {family} ({arch}) card vs CPU: losses {got_h} / {want_h}, {counts}")
+        report[family] = {"arch": arch, "loss_rel": rel, "gradients": grads, **counts}
+        print(f"train {family} ({arch}) smoke, card vs CPU: first gradients of "
+              f"{grads['leaves']} leaves within {grads['worst_of_own'] * TRAIN_GRAD_TOL:.3g} of "
+              f"their own largest (worst {grads['worst_leaf']}), zero-gradient leaves {zero} "
+              f"below {grads['worst_zero_of_residue'] * testing.RESIDUE:.3g} of the whole; "
+              f"{steps} steps: losses {got_h} within {rel:.3g} relative, weights within "
+              f"{counts['worst_of_step']:.3g} quantization steps ({counts['beyond_step']} of "
+              f"{counts['elements']} beyond one), zero-gradient leaves within "
+              f"{counts['zero_max_abs']:.3g}")
+    release(torch)
+    return report
+
+
+def check_train_forward_only(torch, dev) -> None:
+    """(T3) A smoke-width llama3.2-1b ``train_loop`` step at seq 128 on the
+    card routes attention to B7, whose backward must raise
+    NotImplementedError (ROADMAP C13), as ``jax.grad`` through the
+    reference's kernel fails: one launch a layer in the forward, and one
+    more where the backward recomputes the last block (remat) before it
+    reaches the kernel's backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+
+    cfg = get_smoke_config("llama3.2-1b")
+    ops.reset_launch_counts()
+    try:
+        train_loop(cfg, steps=1, batch_size=2, seq_len=128, log_every=0, device=dev)
+    except NotImplementedError as exc:
+        flash = ops.launch_counts()["flash_attention"]
+        print(f"train at seq 128 on the card raises NotImplementedError after {flash} B7 "
+              f"launches: {exc}")
+        if flash != cfg.num_layers + int(cfg.remat):
+            fail(f"train at seq 128: {flash} B7 launches, expected "
+                 f"{cfg.num_layers + int(cfg.remat)}")
+    else:
+        fail("a train_loop step at seq 128 on the card did not raise")
+    release(torch)
+
+
+def check_family_jobs_against_cpu(torch, dev) -> dict:
+    """(T4) The first path's spec at smoke width for each arch of
+    :data:`FAMILY_JOB_SMOKE`, with fixed updates (``testing.fixed_train_fn``)
+    from the same weights on the CPU and on the card: final weights and
+    wire bytes bitwise equal."""
+    from repro_torch.fl.job import build_job, initial_weights
+    from repro_torch.testing import fixed_train_fn
+
+    report = {}
+    for arch in FAMILY_JOB_SMOKE:
+        spec = {**SPEC, "arch": arch, "smoke": True}
+        init = {k: v.numpy() for k, v in initial_weights(spec, device="cpu").items()}
+        outs = {}
+        for d in ("cpu", dev):
+            jb = build_job(spec, device=d, weights=init)
+            for i, proxy in enumerate(jb.sim.proxies):
+                proxy.executor.train_fn = fixed_train_fn(init, i, 0.05)
+            out = jb.run()
+            outs[str(d)] = ({k: v.cpu() for k, v in out["final_weights"].items()},
+                            out["wire_bytes"])
+        (want, want_bytes), (got, got_bytes) = outs["cpu"], outs[str(dev)]
+        if got_bytes != want_bytes:
+            fail(f"{arch} smoke job: wire bytes {got_bytes} on the card, {want_bytes} on the CPU")
+        for name, w in want.items():
+            if not torch.equal(bits(torch, got[name]), bits(torch, w)):
+                fail(f"{arch} smoke job with fixed updates differs between card and CPU at "
+                     f"{name}")
+        report[arch] = {"items": len(want), "wire_bytes": want_bytes}
+        print(f"{arch} smoke job, fixed updates, card vs CPU: {len(want)} items bitwise equal, "
+              f"{want_bytes} wire bytes equal")
+    return report
+
+
+def run_family_round(torch, dev) -> dict:
+    """(T4) The first path (blockwise8 + streaming fold, 2 clients, 1
+    round) with :data:`FAMILY_JOB_ARCH` at full width through
+    ``repro_torch.fl.job``, the counters zeroed before and checked after:
+    one B1 a message, one B2 a downlinked item, one B3 an uplinked item."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import create_model
+
+    spec = {**SPEC, "arch": FAMILY_JOB_ARCH}
+    n_items = len(create_model(get_config(FAMILY_JOB_ARCH)).param_shapes())
+    clients, rounds = spec["clients"], spec["rounds"]
+    return run_path(torch, dev, f"blockwise8_{FAMILY_JOB_ARCH}", spec, {
+        "quantize_blockwise8": 2 * clients * rounds,
+        "dequantize_blockwise8": clients * rounds * n_items,
+        "dequant_accumulate8_into": clients * rounds * n_items}, n_items=n_items)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -3634,6 +3917,7 @@ def main(argv=None) -> int:
                     help="also time both exact cuSOLVER SVD drivers on the largest lora item")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3720,6 +4004,19 @@ def main(argv=None) -> int:
     chaos = run_chaos(torch, dev)
     live_cli = run_live_clis(torch, dev)
     checkpoints = check_checkpoints(torch, dev)
+    train = {label: run_train(torch, dev, label, arch, batch, seq, layers)
+             for label, arch, batch, seq, layers in TRAIN_RUNS}
+    label, arch, batch, seq, layers = TRAIN_RUNS[0]
+    train[f"{label}_no_remat"] = run_train(torch, dev, label, arch, batch, seq, layers,
+                                           remat=False)
+    on, off = train[label], train[f"{label}_no_remat"]
+    print(f"{label} remat on / off: peak {on['max_memory_allocated_bytes']} / "
+          f"{off['max_memory_allocated_bytes']} bytes, step {on['median_step_ms']:.3f} / "
+          f"{off['median_step_ms']:.3f} ms")
+    train_cpu = check_train_against_cpu(torch, dev)
+    check_train_forward_only(torch, dev)
+    family_round = run_family_round(torch, dev)
+    family_jobs = check_family_jobs_against_cpu(torch, dev)
     rows["slstm_scan"] = {
         **{k: slstm["serve_xlstm"][k] for k in ("shape", "ms", "us_per_step", "plain_ms",
                                                  "library_ms", "bound_ms", "bound_by",
@@ -3768,8 +4065,11 @@ def main(argv=None) -> int:
                        "family_cpu_parity": family_cpu,
                        "fl_train": fl, "slstm": slstm, "serve_xlstm": serve_xlstm,
                        "serve_xlstm_cpu_parity": xlstm_cpu, "live": live,
-                       "chaos": chaos, "live_cli": live_cli, "checkpoints": checkpoints},
+                       "chaos": chaos, "live_cli": live_cli, "checkpoints": checkpoints,
+                       "train": train, "train_cpu_parity": train_cpu,
+                       "family_round": family_round, "family_jobs_cpu_parity": family_jobs},
                       fh, indent=1)
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

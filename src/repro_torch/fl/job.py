@@ -36,9 +36,13 @@ Entry points run on ``cuda`` unless the caller passes ``device``; with no
 CUDA device they raise. On CUDA the job turns TF32 off for matmuls and
 cuDNN, so training runs in full fp32 like the reference.
 
-Local training mirrors the reference's ``_train_executor``: round-keyed
-batches from the same numpy generators, AdamW re-initialised every
-round, ``local_steps`` steps of PyTorch autograd. Initial weights come
+Local training mirrors the reference's ``_train_executor``: the spec's
+model built by family (``models.create_model``; without the reference's
+per-block remat, which changes memory only), round-keyed batches
+from the same numpy generators (tokens and labels only, so an enc-dec
+spec raises ``KeyError: 'frames'`` in its first local step, as the
+reference's does), AdamW re-initialised every round, ``local_steps``
+steps of PyTorch autograd. Initial weights come
 from a seeded ``torch.Generator`` with the reference's initialiser
 scales, or from ``weights=`` — e.g. the reference's own weights carried
 across with :func:`repro_torch.utils.trees.from_reference_state` — so both
@@ -79,11 +83,11 @@ from repro_torch.data import dirichlet_partition, iid_partition
 from repro_torch.fl.aggregator import aggregator_consumes_wire, build_aggregator
 from repro_torch.fl.executor import TrainExecutor
 from repro_torch.fl.simulator import FLSimulator, SimulationConfig
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models import create_model
 from repro_torch.obs import Tracer
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import disable_tf32, resolve_device
 from repro_torch.utils.trees import (
     check_state,
     flatten_state_dict,
@@ -354,13 +358,18 @@ def _client_datasets(spec: dict[str, Any], cfg: Any) -> list[Any]:
 
 
 def _model_config(spec: dict[str, Any]) -> Any:
+    """The spec's model config with remat off. Remat changes memory only,
+    and a round's local step peaks on AdamW's state (weights, gradients
+    and two moments) at a job's local batch, so recomputing each block
+    would add a forward and save nothing."""
     cfg = get_smoke_config(spec["arch"]) if spec["smoke"] else get_config(spec["arch"])
+    cfg = cfg.with_overrides(remat=False)
     layers = spec.get("num_layers")
     return cfg if layers is None else cfg.with_overrides(num_layers=int(layers))
 
 
 def _train_executor(
-    name: str, data: Any, spec: dict[str, Any], model: DecoderLM, device: torch.device,
+    name: str, data: Any, spec: dict[str, Any], model: Any, device: torch.device,
     history: Optional[list[float]] = None,
 ) -> TrainExecutor:
     def train_fn(flat_params, rnd):
@@ -409,7 +418,7 @@ def build_client_executor(
     datasets = _client_datasets(spec, cfg)
     if not 0 <= index < len(datasets):
         raise ValueError(f"client index {index} out of range for {len(datasets)} clients")
-    return _train_executor(f"site-{index}", datasets[index], spec, DecoderLM(cfg),
+    return _train_executor(f"site-{index}", datasets[index], spec, create_model(cfg),
                            device, history)
 
 
@@ -418,13 +427,8 @@ def initial_weights(spec: dict[str, Any], device: Any = None) -> dict[str, torch
     from a ``torch.Generator`` seeded with ``spec["seed"]``."""
     spec = normalize_spec(spec)
     device = resolve_device(device)
-    model = DecoderLM(_model_config(spec))
+    model = create_model(_model_config(spec))
     return flatten_state_dict(model.init(spec["seed"], device))
-
-
-def disable_tf32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 @dataclasses.dataclass
@@ -478,7 +482,7 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
     if device.type == "cuda":
         disable_tf32()
     cfg = _model_config(spec)
-    model = DecoderLM(cfg)
+    model = create_model(cfg)
     datasets = _client_datasets(spec, cfg)
     history: list[float] = []
     executors = [

@@ -18,8 +18,9 @@ FOLD_WEIGHTS = (1.0, 8.0, 0.37)
 def blockwise8_cases(seed: int = 1234) -> dict[str, np.ndarray]:
     """Named flat fp32 inputs: a ragged length, an all-zero block, -0.0
     (a whole block and scattered), magnitudes from 1e-3 to 1e3,
-    subnormals (see :func:`subnormal_blocks`) and NaN and infinities (see
-    :func:`nonfinite_blocks`)."""
+    subnormals (see :func:`subnormal_blocks`), NaN and infinities (see
+    :func:`nonfinite_blocks`) and one short block (a norm scale's 256
+    values)."""
     rng = np.random.default_rng(seed)
     cases: dict[str, np.ndarray] = {}
     cases["ragged_6322"] = (rng.standard_normal(6322) * 3.0).astype(np.float32)
@@ -35,6 +36,8 @@ def blockwise8_cases(seed: int = 1234) -> dict[str, np.ndarray]:
             rng.standard_normal(2 * BLOCK8 + 17) * 10.0 ** e).astype(np.float32)
     cases["subnormal"] = subnormal_blocks(BLOCK8, rng)
     cases["nan_inf"] = nonfinite_blocks(BLOCK8, rng)
+    # drawn last, so the cases above keep their inputs
+    cases["one_block_256"] = (rng.standard_normal(256) * 0.05).astype(np.float32)
     return cases
 
 
@@ -128,6 +131,16 @@ def subnormal_accumulator(nblocks: int, seed: int = 98) -> np.ndarray:
     acc = rng.standard_normal((nblocks, BLOCK8)) * 1e-37
     acc[:, ::3] = rng.standard_normal((nblocks, BLOCK8))[:, ::3] * 1e-40
     return acc.astype(np.float32)
+
+
+def one_block_folds(n: int = 64, seed: int = 7531) -> list[tuple[np.ndarray, np.ndarray]]:
+    """``n`` single-block fold inputs: (1, 4096) int8 codes in [-127, 127]
+    and a (1,) fp32 absmax from 1e-3 to 1e3 each. At one block the
+    reference's fold forms its scale in another order than at two or more
+    (``kernels.ref.fold_scale``), which one sample may not show."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(-127, 128, (1, BLOCK8)).astype(np.int8),
+             (10.0 ** rng.uniform(-3, 3, 1)).astype(np.float32)) for _ in range(n)]
 
 
 def fold_accumulator(nblocks: int, seed: int = 99) -> np.ndarray:

@@ -115,13 +115,23 @@ dequantize_kernel(const char4* __restrict__ q, const float* __restrict__ absmax,
   }
 }
 
+// The fold's scale of one block, as XLA compiles the reference's
+// (absmax / 127.0) * w: the division is a product with f32(1/127), and for
+// two blocks or more the scalar constant is reassociated with the scalar
+// weight, absmax * (f32(1/127) * w); at one block the constant is a
+// one-element array and the product stays (absmax * f32(1/127)) * w.
+__device__ __forceinline__ float fold_scale(float absmax, float w, bool one_block) {
+  return one_block ? ftz(__fmul_rn(ftz(__fmul_rn(ftz(absmax), kInv127)), ftz(w)))
+                   : ftz(__fmul_rn(ftz(absmax), ftz(__fmul_rn(kInv127, w))));
+}
+
 __global__ void __launch_bounds__(kThreads)
 fold_kernel(float4* __restrict__ acc, const char4* __restrict__ q,
-            const float* __restrict__ absmax, float w) {
+            const float* __restrict__ absmax, float w, bool one_block) {
   const long long b = blockIdx.x;
   float4* ab = acc + b * (kBlock / 4);
   const char4* qb = q + b * (kBlock / 4);
-  const float s = ftz(__fmul_rn(ftz(absmax[b]), ftz(__fmul_rn(kInv127, w))));
+  const float s = fold_scale(absmax[b], w, one_block);
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
     const int i = threadIdx.x + k * kThreads;
@@ -136,7 +146,7 @@ fold_kernel(float4* __restrict__ acc, const char4* __restrict__ q,
 }
 
 // Sum over k = 0 .. K-1 of w[k] * dequant(q[k]), in order, from 0: the
-// fold's arithmetic (scale absmax * (f32(1/127) * w), one fmaf per pod)
+// fold's arithmetic (fold_scale, one fmaf per pod)
 // with the running sum in registers. qs: (K, nblocks, 4096) int8;
 // absmax: (K, nblocks); w: (K,); dynamic shared memory: K floats.
 __global__ void __launch_bounds__(kThreads)
@@ -146,7 +156,7 @@ agg_kernel(const char4* __restrict__ qs, const float* __restrict__ absmax,
   extern __shared__ float scale[];
   const long long b = blockIdx.x;
   for (int k = threadIdx.x; k < K; k += kThreads) {
-    scale[k] = ftz(__fmul_rn(ftz(absmax[k * nblocks + b]), ftz(__fmul_rn(kInv127, w[k]))));
+    scale[k] = fold_scale(absmax[k * nblocks + b], w[k], nblocks == 1);
   }
   __syncthreads();
   float4 acc[kVecs];
@@ -206,7 +216,7 @@ int bw8_fold(void* acc, const void* q, const void* absmax, float w,
     fold_kernel<<<static_cast<unsigned>(nblocks), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<float4*>(acc), static_cast<const char4*>(q),
-        static_cast<const float*>(absmax), w);
+        static_cast<const float*>(absmax), w, nblocks == 1);
   }
   return static_cast<int>(cudaGetLastError());
 }

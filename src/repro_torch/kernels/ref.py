@@ -140,10 +140,25 @@ def dequantize_blockwise8(q: torch.Tensor, absmax: torch.Tensor) -> torch.Tensor
     return ftz(q.to(torch.float32) * scale[:, None])
 
 
+def fold_scale(absmax: torch.Tensor, weight: float) -> torch.Tensor:
+    """The fold's scale of each block, as XLA compiles the reference's
+    ``(absmax / 127.0) * w``: the division becomes a product with
+    f32(1/127), and for two blocks or more the scalar constant is
+    reassociated with the scalar weight, ``absmax * (f32(1/127) * w)``;
+    at one block the constant is a one-element array and the product
+    stays ``(absmax * f32(1/127)) * w``. Subnormals flushed at each step."""
+    absmax = ftz(absmax.to(torch.float32))
+    if absmax.shape[0] == 1:
+        return ftz(ftz(absmax * INV127) * _ftz_scalar(np.float32(weight)))
+    return ftz(absmax * _ftz_scalar(np.float32(INV127) * np.float32(weight)))
+
+
 def dequant_accumulate8_into(
     acc: torch.Tensor, q: torch.Tensor, absmax: torch.Tensor, weight: float
 ) -> torch.Tensor:
-    """``acc <- fma(q, absmax * (f32(1/127) * w), acc)``, in place.
+    """``acc <- fma(q, absmax * (f32(1/127) * w), acc)``, in place; at one
+    block ``acc <- fma(q, (absmax * f32(1/127)) * w, acc)`` (see
+    :func:`fold_scale`).
 
     PyTorch has no elementwise FMA, so the exact ``q * s + acc`` is formed
     in float64 (``q * s`` is exact there: 8 by 24 significant bits) and
@@ -152,8 +167,7 @@ def dequant_accumulate8_into(
     rounding to float32 equal to a single correct rounding of the exact
     value — the FMA's result, bit for bit (then flushed, if subnormal).
     """
-    cw = _ftz_scalar(np.float32(INV127) * np.float32(weight))
-    s = ftz(ftz(absmax.to(torch.float32)) * cw).to(torch.float64)
+    s = fold_scale(absmax, weight).to(torch.float64)
     p = q.to(torch.float64) * s[:, None]
     a = ftz(acc).to(torch.float64)
     t = p + a

@@ -118,13 +118,12 @@ from repro_torch.fl.job import (
     aggregator_spec,
     build_client_executor,
     build_pipelines_from_spec,
-    disable_tf32,
     initial_weights,
     normalize_spec,
 )
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import disable_tf32, resolve_device
 from repro_torch.utils.trees import as_numpy
 
 PROTO = 1

@@ -47,13 +47,8 @@ from repro_torch.kernels import _build
 from repro_torch.models import create_model
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.utils.device import resolve_device
-from repro_torch.utils.trees import (
-    check_state,
-    from_reference_state,
-    tree_leaves,
-    unflatten_state_dict,
-)
+from repro_torch.utils.device import disable_tf32, resolve_device
+from repro_torch.utils.trees import params_from_flat, tree_leaves
 
 AGGS = ("fp32", "int8", "int8-bucket")
 #: the bucket of ``--agg int8-bucket`` (the reference's, 8 MiB of fp32)
@@ -143,19 +138,6 @@ def make_fl_round(model: Any, *, local_steps: int, lr: float, agg: str,
     return fl_round
 
 
-def _initial_params(model: Any, init_params: dict[str, Any], device: torch.device) -> Any:
-    """A flat ``{dotted.name: array}`` dict — numpy (the reference's
-    weights) or tensors — as the model's nested params on ``device``."""
-    expect = {name: (shape, model.cfg.param_dtype)
-              for name, shape in model.param_shapes().items()}
-    if all(isinstance(v, torch.Tensor) for v in init_params.values()):
-        check_state(init_params, expect)
-        flat = {name: init_params[name].to(device).clone() for name in sorted(init_params)}
-    else:
-        flat = from_reference_state(init_params, device, expect)
-    return unflatten_state_dict(flat)
-
-
 def run(args: argparse.Namespace, *, rank: int = 0, world: int = 1,
         init_params: Optional[dict[str, Any]] = None,
         group: Optional[Any] = None) -> dict[str, Any]:
@@ -171,14 +153,14 @@ def run(args: argparse.Namespace, *, rank: int = 0, world: int = 1,
         raise ValueError(f"{world} ranks for {args.pods} pods")
     device = rank_device(args.device, rank)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        disable_tf32()
+    # remat off, as in fl/job.py: a local step peaks on AdamW's state
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = create_model(cfg)
+    model = create_model(cfg.with_overrides(remat=False))
     if init_params is None:
         params = model.init(args.seed, device)
     else:
-        params = _initial_params(model, init_params, device)
+        params = params_from_flat(model, init_params, device)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
     opt_state = adamw_init(params)

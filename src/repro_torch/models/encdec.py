@@ -91,12 +91,15 @@ class EncDecModel:
         cfg = self.cfg
         x = frames.to(cfg.activ_dtype)
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
-        unbound = _unbind_tree(params["enc_blocks"])
-        for i in range(cfg.encoder_layers):
-            bp = _layer(unbound, i)
+
+        def block(x, bp):
             x = x + L.attn_forward(L.rms_norm(x, bp["attn_norm"]), bp["attn"], cfg,
                                    causal=False)
-            x = x + L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
+            return x + L.mlp_forward(L.rms_norm(x, bp["mlp_norm"]), bp["mlp"])
+
+        unbound = _unbind_tree(params["enc_blocks"])
+        for i in range(cfg.encoder_layers):
+            x = L.remat_block(cfg, block, x, _layer(unbound, i))
         return L.rms_norm(x, params["enc_norm"])
 
     # -- decoder ---------------------------------------------------------------
@@ -123,8 +126,11 @@ class EncDecModel:
         }
         return x, cache
 
-    def _decoder(self, params: dict[str, Any], tokens: torch.Tensor, frames: torch.Tensor
-                 ) -> tuple[torch.Tensor, list[dict[str, torch.Tensor]]]:
+    def _decoder(self, params: dict[str, Any], tokens: torch.Tensor, frames: torch.Tensor,
+                 collect_cache: bool) -> tuple[torch.Tensor, list[dict[str, torch.Tensor]]]:
+        """The decoder over the prompt -> (x, each layer's cache if
+        ``collect_cache``). Without caches each block is rematerialised
+        under ``cfg.remat`` when training."""
         cfg = self.cfg
         memory = self.encode(params, frames)
         x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
@@ -132,13 +138,18 @@ class EncDecModel:
         unbound = _unbind_tree(params["dec_blocks"])
         caches = []
         for i in range(cfg.num_layers):
-            x, cache = self._dec_block(x, _layer(unbound, i), memory)
-            caches.append(cache)
+            bp = _layer(unbound, i)
+            if collect_cache:
+                x, cache = self._dec_block(x, bp, memory)
+                caches.append(cache)
+            else:
+                x = L.remat_block(cfg, lambda x, bp, m: self._dec_block(x, bp, m)[0],
+                                  x, bp, memory)
         return x, caches
 
     def forward(self, params: dict[str, Any], tokens: torch.Tensor,
                 frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        x, _ = self._decoder(params, tokens, frames)
+        x, _ = self._decoder(params, tokens, frames, collect_cache=False)
         logits = L.lm_logits(x, params["embed"])
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -168,7 +179,7 @@ class EncDecModel:
         position's logits (B,1,vocab) and the cache: self-attention keys
         and values sized to the prompt, the projected memory for
         cross-attention."""
-        x, caches = self._decoder(params, tokens, frames)
+        x, caches = self._decoder(params, tokens, frames, collect_cache=True)
         return L.lm_logits(x[:, -1:], params["embed"]), _stack_states(caches)
 
     def decode_step(self, params: dict[str, Any], cache: dict[str, torch.Tensor],

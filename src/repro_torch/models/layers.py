@@ -21,6 +21,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels.flash_attention import (
     DEFAULT_BLOCK_K,
@@ -105,6 +106,18 @@ def stack_spec(spec: dict[str, Any], num: int) -> dict[str, Any]:
     if isinstance(spec, ParamDef):
         return stacked(spec, num)
     return {k: stack_spec(v, num) for k, v in spec.items()}
+
+
+def remat_block(cfg: B.ModelConfig, fn: Any, *args: Any) -> Any:
+    """``fn(*args)``, one block of a model's layer loop. With
+    ``cfg.remat`` and autograd recording, its activations are recomputed
+    in the backward instead of kept (the reference's
+    ``jax.checkpoint(body)``); the values are the same either way. The
+    blocks draw no random numbers, so no RNG state is stashed."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

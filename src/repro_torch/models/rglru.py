@@ -245,18 +245,18 @@ class GriffinModel:
         """Flat ``{dotted.name: shape}`` of the parameters."""
         return L.param_shapes(self._spec)
 
-    def _layers(self, params: dict[str, Any]):
-        """(key, kind, layer params, super-block index or None for the
-        tail) of every layer in order."""
-        pat = self.cfg.block_pattern
+    def _groups(self, params: dict[str, Any]):
+        """Each super-block in order, then the tail: (super-block index,
+        or None for the tail, and its layers as (key, kind, layer
+        params))."""
         unbound = _unbind_tree(params["blocks"])
         for s in range(self.n_super):
             bp = _layer(unbound, s)
-            for i, kind in enumerate(pat):
-                yield f"{i}_{kind}", kind, bp[f"{i}_{kind}"], s
-        for i, kind in enumerate(self.tail_pattern):
-            key = f"{i}_{kind}"
-            yield key, kind, params["tail"][key], None
+            yield s, [(f"{i}_{kind}", kind, bp[f"{i}_{kind}"])
+                      for i, kind in enumerate(self.cfg.block_pattern)]
+        if self.tail_pattern:
+            yield None, [(f"{i}_{kind}", kind, params["tail"][f"{i}_{kind}"])
+                         for i, kind in enumerate(self.tail_pattern)]
 
     # -- layer application helpers -------------------------------------------
     def _apply_layer(self, x: torch.Tensor, kind: str, lp: dict[str, Any]):
@@ -299,11 +299,18 @@ class GriffinModel:
     def forward(self, params: dict[str, Any], tokens: torch.Tensor,
                 patches: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Logits and a zero aux loss; ``patches`` is unused, as in the
-        reference."""
+        reference. Each super-block (not the tail) is rematerialised
+        under ``cfg.remat`` when training, as the reference's scan body."""
         del patches
         x = L.embed_tokens(tokens, params["embed"], self.cfg.activ_dtype)
-        for _key, kind, lp, _s in self._layers(params):
-            x, _ = self._apply_layer(x, kind, lp)
+
+        def run(x, layers):
+            for _key, kind, lp in layers:
+                x, _ = self._apply_layer(x, kind, lp)
+            return x
+
+        for s, layers in self._groups(params):
+            x = run(x, layers) if s is None else L.remat_block(self.cfg, run, x, layers)
         logits = L.lm_logits(x, params["embed"])
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -347,9 +354,10 @@ class GriffinModel:
         x = L.embed_tokens(tokens, params["embed"], self.cfg.activ_dtype)
         stacked: list[dict[str, Any]] = [{} for _ in range(self.n_super)]
         tail: dict[str, Any] = {}
-        for key, kind, lp, s in self._layers(params):
-            x, state = self._apply_layer(x, kind, lp)
-            (tail if s is None else stacked[s])[key] = state
+        for s, layers in self._groups(params):
+            for key, kind, lp in layers:
+                x, state = self._apply_layer(x, kind, lp)
+                (tail if s is None else stacked[s])[key] = state
         cache: dict[str, Any] = {"blocks": _stack_states(stacked)}
         if self.tail_pattern:
             cache["tail"] = tail
@@ -361,10 +369,11 @@ class GriffinModel:
         (B,1,vocab). ``cache`` is updated in place (each layer writes
         through views of the stacked tensors) and returned."""
         x = L.embed_tokens(tokens, params["embed"], self.cfg.activ_dtype)
-        for key, kind, lp, s in self._layers(params):
-            if s is None:
-                st = cache["tail"][key]
-            else:
-                st = {name: t[s] for name, t in cache["blocks"][key].items()}
-            x = self._apply_layer_decode(x, kind, lp, st, pos)
+        for s, layers in self._groups(params):
+            for key, kind, lp in layers:
+                if s is None:
+                    st = cache["tail"][key]
+                else:
+                    st = {name: t[s] for name, t in cache["blocks"][key].items()}
+                x = self._apply_layer_decode(x, kind, lp, st, pos)
         return L.lm_logits(x, params["embed"]), cache

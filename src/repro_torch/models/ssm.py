@@ -407,11 +407,14 @@ class XLSTMModel:
                 tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         x = L.embed_tokens(tokens, params["embed"], cfg.activ_dtype)
+
+        def block(x, bp):
+            x = mlstm_block_forward(x, bp["mlstm"], cfg)
+            return slstm_block_forward(x, bp["slstm"], cfg)
+
         unbound = _unbind_tree(params["blocks"])
         for i in range(self.n_super):
-            bp = _layer(unbound, i)
-            x = mlstm_block_forward(x, bp["mlstm"], cfg)
-            x = slstm_block_forward(x, bp["slstm"], cfg)
+            x = L.remat_block(cfg, block, x, _layer(unbound, i))
         logits = L.lm_logits(x, params["embed"])
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 

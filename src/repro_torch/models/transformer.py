@@ -119,13 +119,18 @@ class DecoderLM:
     def forward(self, params: dict[str, Any], tokens: torch.Tensor,
                 patches: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Logits of the token positions (the patch prefix's are dropped)
-        and the aux loss summed over layers (0 but for ``moe``)."""
+        and the aux loss summed over layers (0 but for ``moe``). Each
+        block is rematerialised under ``cfg.remat`` when training."""
         cfg = self.cfg
         x, n_prefix = _embed(params, tokens, patches, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         unbound = _unbind_tree(params["blocks"])
+
+        def block(x, bp):
+            return _block_forward(x, bp, cfg, window=cfg.sliding_window)
+
         for i in range(cfg.num_layers):
-            x, a = _block_forward(x, _layer(unbound, i), cfg, window=cfg.sliding_window)
+            x, a = L.remat_block(cfg, block, x, _layer(unbound, i))
             if a is not None:
                 aux = aux + a
         logits = L.lm_logits(x[:, n_prefix:], params["embed"])

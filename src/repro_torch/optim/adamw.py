@@ -60,7 +60,7 @@ def adamw_update(
     params: Any,
     grads: Any,
     state: AdamWState,
-    lr: float,
+    lr: float | torch.Tensor,
     *,
     b1: float = 0.9,
     b2: float = 0.95,
@@ -71,7 +71,10 @@ def adamw_update(
     """One AdamW step, in place: ``params``, the moments and the step
     count in ``state`` are updated, and both are returned (the same
     objects). ``grads`` has ``params``' structure (or is the list of
-    gradients in ``tree_leaves(params)`` order); the clip overwrites it."""
+    gradients in ``tree_leaves(params)`` order); the clip overwrites it.
+    ``lr`` is a Python float or a 0-dim fp32 tensor on the parameters'
+    device (a schedule's value), which is used as it is: no copy, no
+    host sync."""
     p_leaves = tree_leaves(params)
     g_leaves = list(grads) if isinstance(grads, (list, tuple)) else tree_leaves(grads)
     m_leaves, v_leaves = tree_leaves(state.m), tree_leaves(state.v)
@@ -86,7 +89,7 @@ def adamw_update(
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(b1, **f32), stepf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, **f32), stepf)
-    lr_t = torch.tensor(lr, **f32)
+    lr_t = lr if isinstance(lr, torch.Tensor) else torch.tensor(lr, **f32)
     for p, g, m, v in zip(p_leaves, g_leaves, m_leaves, v_leaves):
         g32 = g.to(torch.float32)
         m.mul_(b1).add_(g32 * (1 - b1))

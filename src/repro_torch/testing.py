@@ -22,6 +22,12 @@ import torch
 #: by AdamW's sign-flip term
 NF4_FLIP_SHARE = 1e-4
 SIGN_FLIP_SHARE = 1e-5
+#: the leaves whose exact gradient is zero for any batch, by family
+#: (:func:`zero_gradient_leaves`)
+ZERO_GRADIENT_LEAVES = {"ssm": ("blocks.slstm.i.b",)}
+#: what autograd computes for such a leaf is rounding: its largest value
+#: stays below this share of the whole gradient's largest
+RESIDUE = 1e-7
 
 
 def fixed_train_fn(init: dict, index: int, scale: float):
@@ -108,6 +114,63 @@ def c1_counts(want: dict, got: dict, sign_flips: float) -> dict:
              and beyond_gap <= SIGN_FLIP_SHARE * n)
     return {"elements": n, "beyond_step": beyond_step, "beyond_gap": beyond_gap,
             "holds": holds, "worst_of_step": worst_step, "worst_of_gap": worst_gap}
+
+
+def zero_gradient_leaves(cfg) -> tuple[str, ...]:
+    """The leaves of ``cfg``'s model whose exact gradient is zero for any
+    batch: xLSTM's sLSTM input-gate bias. The sLSTM's output is ``o c /
+    n``; from its zero state (stabiliser ``m`` at -1e30, so ``n >= 1`` from
+    the first step and the 1e-6 floor never binds) both ``c`` and ``n``
+    are linear in ``exp(i)``, so shifting a unit's input-gate
+    preactivation by a constant over every step, as its bias does, leaves
+    the output as it is. What autograd computes for it is rounding
+    (1.1e-9 to 2.1e-9 of the whole gradient's largest at smoke width, in
+    the port and the reference alike, and 1.3-1.5 times itself apart);
+    AdamW normalises that rounding into steps of up to ``lr``, so the
+    leaf's trained weights are arbitrary within AdamW's sign-flip term.
+    Every other leaf's gradient, however small, is not rounding: the
+    mLSTM block's are 3.6e-10 to 7.3e-7 of the largest at the seeded
+    inits (its cell output's mean square, ~1e-17, is far below
+    ``out_norm``'s eps of 1e-6, so the block passes little signal), and
+    the two packages agree on each to 4.4e-6 of its own largest."""
+    return ZERO_GRADIENT_LEAVES.get(cfg.family, ())
+
+
+def gradient_counts(want: dict, got: dict, zero: tuple, tol: float) -> dict:
+    """Two computations of one gradient, leaf by leaf (card against CPU,
+    or the port against the reference): each leaf within ``tol`` of its
+    own largest value in ``want``, and each leaf of ``zero``
+    (:func:`zero_gradient_leaves`) below :data:`RESIDUE` of the whole
+    gradient's largest on both sides. Returns the worst ratio to each
+    bound, the leaf that has it, and whether both hold."""
+    largest = max(float(w.abs().max()) for w in want.values())
+    worst, worst_leaf, worst_zero = 0.0, None, 0.0
+    for name, w in want.items():
+        g = got[name]
+        if name in zero:
+            size = max(float(w.abs().max()), float(g.abs().max()))
+            worst_zero = max(worst_zero, size / (RESIDUE * largest))
+            continue
+        err = float((g - w).abs().max())
+        ratio = err / (tol * float(w.abs().max())) if err else 0.0
+        if ratio >= worst:
+            worst, worst_leaf = ratio, name
+    return {"leaves": len(want), "worst_of_own": worst, "worst_leaf": worst_leaf,
+            "zero": list(zero), "worst_zero_of_residue": worst_zero,
+            "holds": worst <= 1 and worst_zero <= 1}
+
+
+def trained_counts(want: dict, got: dict, zero: tuple, sign_flips: float) -> dict:
+    """Trained weights ``got`` against ``want``: :func:`c1_counts` over the
+    leaves not in ``zero`` (:func:`zero_gradient_leaves`), and each
+    element of a ``zero`` leaf within AdamW's ``sign_flips`` term. Returns
+    c1_counts' dict with the zero leaves, their largest difference and
+    ``holds`` for both."""
+    rest = [k for k in want if k not in zero]
+    c1 = c1_counts({k: want[k] for k in rest}, {k: got[k] for k in rest}, sign_flips)
+    worst = max((float((got[k] - want[k]).abs().max()) for k in zero), default=0.0)
+    return {**c1, "zero": list(zero), "zero_max_abs": worst,
+            "holds": c1["holds"] and worst <= sign_flips}
 
 
 def async_formats(spec: dict, hop: str, names: list[str]) -> dict[str, str | None]:

@@ -2,7 +2,8 @@
 
 Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` they take ``cuda`` and raise when CUDA is absent — they never
-carry on quietly on the CPU.
+carry on quietly on the CPU. Those that train turn TF32 off on CUDA
+(:func:`disable_tf32`), so matmuls run in fp32 like the reference's.
 """
 from __future__ import annotations
 
@@ -23,3 +24,9 @@ def resolve_device(device: Optional[Any] = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+def disable_tf32() -> None:
+    """fp32 matmuls and convolutions on CUDA: no TF32 rounding of inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

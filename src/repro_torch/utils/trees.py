@@ -197,6 +197,21 @@ def from_reference_state(
     return {name: torch.tensor(flat_np[name], device=device) for name in sorted(flat_np)}
 
 
+def params_from_flat(model: Any, flat: Mapping[str, Any], device: Any) -> dict[str, Any]:
+    """A flat ``{dotted.name: array}`` dict — numpy (the reference's
+    weights, through :func:`from_reference_state`) or tensors (copied) —
+    as ``model``'s nested params on ``device``, checked against its
+    ``param_shapes`` and ``param_dtype``."""
+    expect = {name: (shape, model.cfg.param_dtype)
+              for name, shape in model.param_shapes().items()}
+    if all(isinstance(v, torch.Tensor) for v in flat.values()):
+        check_state(flat, expect)
+        tensors = {name: flat[name].to(device).clone() for name in sorted(flat)}
+    else:
+        tensors = from_reference_state(flat, device, expect)
+    return unflatten_state_dict(tensors)
+
+
 def from_reference_items(flat: Mapping[str, Any], device: Any) -> dict[str, Any]:
     """A reference payload whose items may be low-rank factor pairs
     (``repro.peft.lowrank.LowRankDelta``: numpy ``a``/``b`` and the LoRA

@@ -26,6 +26,9 @@ the CPU's fidelity, ``topk`` and ``bf16`` give the CPU's bits, and
 ``examples/jobs/lora_federation.json`` with fixed updates gives the
 CPU's nf4 items and envelopes (but the factors' own bits) with weights
 within the SVDs' bound (``repro_torch.testing.lora_fixed_bounds``).
+The centralized trainer: two smoke-width ``train_loop`` steps of each
+family on the card give the CPU's losses and weights within the CPU
+tests' bounds, and a step at seq 128 (through the flash kernel) raises.
 Imports torch and the port only, so it runs on the card machine, which
 has no JAX:
 
@@ -54,6 +57,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     blockwise8_cases,
     fold_accumulator,
     fourbit_cases,
+    one_block_folds,
     slstm_case,
     slstm_inputs,
     subnormal_accumulator,
@@ -122,6 +126,26 @@ def test_fold_kernel_flushes_subnormals_like_its_plain_version(cuda, weight):
     k = ops.dequant_accumulate8_into(acc0.clone(), q, am, weight)
     p = ref.dequant_accumulate8_into(acc0.clone(), q, am, weight)
     assert torch.equal(_bits(k), _bits(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight", FOLD_WEIGHTS + (3.0, 1 / 3))
+def test_one_block_folds_on_the_card_bitwise_equal_the_plain_version(cuda, weight):
+    """At one block the fold's scale is ``(absmax * f32(1/127)) * w``
+    (``kernels.ref.fold_scale``): 64 single-block items, into an
+    accumulator, and the K-way sum of three of them."""
+    acc0 = torch.from_numpy(fold_accumulator(1)).to(cuda)
+    folds = [(torch.from_numpy(q).to(cuda), torch.from_numpy(am).to(cuda))
+             for q, am in one_block_folds()]
+    for q, am in folds:
+        k = ops.dequant_accumulate8_into(acc0.clone(), q, am, weight)
+        p = ref.dequant_accumulate8_into(acc0.clone(), q, am, weight)
+        assert torch.equal(_bits(k), _bits(p))
+    qs = torch.stack([q for q, _ in folds[:3]])
+    ams = torch.stack([am for _, am in folds[:3]])
+    ws = torch.tensor([weight, 0.37, 3.0], dtype=torch.float32, device=cuda)
+    assert torch.equal(_bits(ops.dequant_accumulate8(qs, ams, ws)),
+                       _bits(ref.dequant_accumulate8(qs, ams, ws)))
 
 
 @pytest.mark.cuda
@@ -628,3 +652,76 @@ def test_lora_job_on_the_card_matches_the_cpu(cuda):
     bounds = testing.lora_fixed_bounds(spec, init, want_w, factored)
     assert all(errs[n] <= bounds[n] for n in factored), (errs, bounds)
     assert all(errs[n] == 0 for n in set(init) - set(factored)), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "dbrx-132b", "phi-3-vision-4.2b", "xlstm-125m",
+                                  "recurrentgemma-2b", "whisper-small"])
+def test_training_on_the_card_matches_the_cpu(cuda, arch):
+    """Smoke width, from the same weights on the card and on the CPU,
+    random frames / patches: the first gradient leaf by leaf
+    (``testing.gradient_counts``: each leaf within 1e-5 of its own
+    largest, a zero-gradient leaf rounding on both), then three
+    ``train_loop`` steps (the first at lr 0, so the last loss follows an
+    update): losses within 1e-5 relative and the weights under
+    ``testing.trained_counts`` (the CPU tests' bounds); no kernel
+    launches (32 tokens, and 16 patches + 32 for the VLM: the masked
+    softmax)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import create_model
+    from repro_torch.utils.device import disable_tf32
+    from repro_torch.utils.trees import flatten_state_dict, tree_leaves, unflatten_state_dict
+
+    disable_tf32()
+    steps, lr = 3, 3e-4
+    cfg = get_smoke_config(arch)
+    model = create_model(cfg)
+    zero = testing.zero_gradient_leaves(cfg)
+    init = flatten_state_dict(model.init(0, "cpu"))
+    rng = np.random.default_rng(5)
+    extra = {}
+    if cfg.family in ("encdec", "vlm"):
+        n = cfg.encoder_seq if cfg.family == "encdec" else cfg.num_patches
+        extra["frames" if cfg.family == "encdec" else "patches"] = \
+            rng.standard_normal((2, n, cfg.d_model)).astype(np.float32)
+    first = {k: torch.from_numpy(v).long()
+             for k, v in SyntheticLMDataset(cfg.vocab_size, 32, seed=0).sample(2).items()}
+    first.update({k: torch.from_numpy(v) for k, v in extra.items()})
+    grads = {}
+    before = ops.launch_counts()
+    for d in ("cpu", cuda):
+        params = unflatten_state_dict({k: v.to(d).clone().requires_grad_(True)
+                                       for k, v in init.items()})
+        g = torch.autograd.grad(model.loss(params, {k: v.to(d) for k, v in first.items()})[0],
+                                tree_leaves(params))
+        grads[str(d)] = {k: v.cpu() for k, v in zip(flatten_state_dict(params), g)}
+    counts = testing.gradient_counts(grads["cpu"], grads[str(cuda)], zero, 1e-5)
+    assert counts["holds"], counts
+    outs = {}
+    for d in ("cpu", cuda):
+        params, history = train_loop(cfg, steps=steps, batch_size=2, seq_len=32, lr=lr,
+                                     params={k: v.clone() for k, v in init.items()},
+                                     log_every=0, extra_batch=extra or None, device=d)
+        outs[str(d)] = ({k: v.detach().cpu() for k, v in flatten_state_dict(params).items()},
+                        history)
+    assert ops.launch_counts() == before
+    (want, want_h), (got, got_h) = outs["cpu"], outs[str(cuda)]
+    np.testing.assert_allclose(got_h, want_h, rtol=1e-5)
+    counts = testing.trained_counts(want, got, zero, sign_flips=2 * lr * steps)
+    assert counts["holds"], counts
+
+
+@pytest.mark.cuda
+def test_training_at_seq_128_raises_on_the_card(cuda):
+    """Seq 128 routes attention to the flash kernel, which has no
+    gradient (ROADMAP C13): the step raises in the backward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import train_loop
+
+    before = flash_attention.launches
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        train_loop(get_smoke_config("llama3.2-1b"), steps=1, batch_size=2, seq_len=128,
+                   log_every=0, device=cuda)
+    assert flash_attention.launches > before

@@ -22,6 +22,7 @@ from repro_torch.kernels.cases import (  # noqa: E402
     FOLD_WEIGHTS,
     blockwise8_cases,
     fold_accumulator,
+    one_block_folds,
     subnormal_accumulator,
 )
 
@@ -192,3 +193,42 @@ def test_kernels_build_from_the_repo_source():
     for entry in _build._SIGNATURES:
         assert f"int {entry}(" in src, entry
 
+
+
+@pytest.mark.parametrize("weight", FOLD_WEIGHTS + (3.0, 1 / 3))
+def test_one_block_folds_bitwise_equal_reference(weight):
+    """A one-block item (a norm scale's 256 values) folds with the scale
+    ``(absmax * f32(1/127)) * w``, not ``absmax * (f32(1/127) * w)``: XLA
+    reassociates the constant with the weight only at two blocks or more
+    (``kernels.ref.fold_scale``). 64 items, into an accumulator and fresh;
+    the K-way sum (K folds) at one block too."""
+    folds = one_block_folds()
+    acc0 = fold_accumulator(1)
+    with ref_ops.backend("ref"):
+        for q, am in folds:
+            for fresh in (True, False):
+                want = ref_ops.dequant_accumulate8_into(
+                    None if fresh else jnp.asarray(acc0.copy()), jnp.asarray(q),
+                    jnp.asarray(am), weight)
+                got = ops.dequant_accumulate8_into(
+                    torch.zeros((1, ref.BLOCK8)) if fresh else torch.from_numpy(acc0.copy()),
+                    torch.from_numpy(q), torch.from_numpy(am), weight)
+                _assert_same(got.numpy(), want)
+        qs = np.stack([q for q, _ in folds[:3]])
+        ams = np.stack([am for _, am in folds[:3]])
+        ws = np.array([weight, 0.37, 3.0], np.float32)
+        want = ref_ops.dequant_accumulate8(jnp.asarray(qs), jnp.asarray(ams), jnp.asarray(ws))
+    got = ops.dequant_accumulate8(torch.from_numpy(qs), torch.from_numpy(ams),
+                                  torch.from_numpy(ws))
+    _assert_same(got.numpy(), want)
+
+
+def test_one_block_fold_scale_is_a_real_check():
+    """The two orders of the scale differ on these inputs, so the test
+    above tells them apart."""
+    differ = 0
+    for _q, am in one_block_folds():
+        a = np.float32(np.float32(am[0]) * np.float32(ref.INV127)) * np.float32(1 / 3)
+        b = np.float32(am[0]) * np.float32(np.float32(ref.INV127) * np.float32(1 / 3))
+        differ += int(np.float32(a) != np.float32(b))
+    assert differ > 0
