@@ -157,6 +157,21 @@ xlstm-125m at full width (B1, B2 and B3 as its 33 items imply) and the
 xlstm-125m and recurrentgemma-2b smoke specs with fixed updates card vs
 CPU, bitwise.
 
+Last (R1), the roofline of five of those full-width steps: each is
+dry-run on the meta device (``repro_torch.launch.dryrun``: the same
+arch, shape, fp32 and TF32 off, one chip, the peaks of the card by its
+name) — train_llama's and train_griffin's step, serve_dense8b's prefill
+and one decode step, serve_full's prefill — and its counted FLOPs and
+bytes, compute and memory seconds, bottleneck, meta peak (beside the
+run's ``max_memory_allocated``) and share = max(compute_s, memory_s) /
+the measured seconds are printed; a share above 1.05 fails (the count
+would be wrong). Then ``python -m repro_torch.launch.dryrun --all`` at one
+chip and one pair on the (16, 16) mesh over a fake process group, a line
+a pair, timed, and one pair there that torch 2.11's DTensor is expected to
+refuse (it must fail with that error or count): they run on the host's
+CPU in subprocesses started before (T1), beside the training phases, so
+T1's times are taken while they run.
+
 ``--svd-drivers`` also times both exact cuSOLVER SVD drivers (``gesvd``,
 ``gesvdj``) once on the largest decomposed item, the measurement that
 chose ``ops.SVD_DRIVER``.
@@ -183,6 +198,13 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_OPS_PER_S,
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    TF32_OPS_PER_S,
+)
 
 #: the first path: examples/jobs/live_smoke.json at full width, quantized
 #: downlink, int8 fold aggregator
@@ -263,11 +285,9 @@ GROUP_BLOCKS = 365_841             # 4096-blocks of one message's fused group
 GROUP_BLOCKS4 = 23_413_792         # 64-blocks of the same group (no padding)
 CHUNK_BLOCKS4 = 1 << 21            # 64-blocks per plain-version comparison
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12             # fp32 outside the tensor cores
-TF32_OPS_PER_S = 495e12            # tensor cores, tf32
-BF16_OPS_PER_S = 989e12            # tensor cores, bf16
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W): HBM_BYTES_PER_S,
+# FP32_OPS_PER_S (outside the tensor cores), TF32_OPS_PER_S, BF16_OPS_PER_S,
+# from the port's roofline table (imported at the top)
 
 #: the serving runs: full-width llama3.2-1b, (label, sliding window,
 #: batch, prompt, generated tokens); the window is the reference's
@@ -381,6 +401,31 @@ TRAIN_GRAD_TOL = 1e-5
 #: must give the CPU's bits on the card
 FAMILY_JOB_ARCH = "xlstm-125m"
 FAMILY_JOB_SMOKE = ("xlstm-125m", "recurrentgemma-2b")
+
+#: (R1) the full-width runs held against the roofline of their own step,
+#: each dry-run on meta at the same arch, shape, fp32 and TF32 off, one chip:
+#: (label, run whose measured span it takes, arch, step kind, batch, length,
+#: remat). serve_dense8b's decode steps run against the (prompt + generated)
+#: cache that generate replays into: 512 + 16 slots
+ROOFLINE_RUNS = (("train_llama", "train_llama", "llama3.2-1b", "train", 4, 192, True),
+                 ("train_griffin", "train_griffin", "recurrentgemma-2b", "train", 1, 192, True),
+                 ("serve_dense8b_prefill", "serve_dense8b", "granite-8b", "prefill", 4, 512,
+                  False),
+                 ("serve_dense8b_decode", "serve_dense8b", "granite-8b", "decode", 4, 528,
+                  False),
+                 ("serve_full_prefill", "serve_full", "llama3.2-1b", "prefill", 4, 512, False))
+#: a roofline above the measured time means the count is wrong
+ROOFLINE_SHARE_MAX = 1.05
+#: the pair dry-run here on the (16, 16) mesh over a fake group of 256 ranks,
+#: on the card machine's torch, which must count
+ROOFLINE_MESH_PAIR = ("granite-8b", "decode_32k", "16x16")
+#: a pair expected to fail there, and the error it fails with: torch 2.11's
+#: DTensor refuses to flatten two sharded dims (batch over data, heads over
+#: model) of a head-sharded einsum, which the CPU sandbox's torch 2.13 runs
+#: (ROADMAP A, item 2). It runs to show the failure and when it is gone
+ROOFLINE_MESH_XFAIL = ("qwen1.5-0.5b", "decode_32k", "16x16",
+                       "Attempted to flatten multiple dimensions")
+ROOFLINE_SWEEP_TIMEOUT_S = 300
 
 BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
 FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
@@ -3893,6 +3938,117 @@ def check_family_jobs_against_cpu(torch, dev) -> dict:
     return report
 
 
+def measured_span_s(run: dict, kind: str) -> float:
+    """The seconds ``run`` measured for one step of ``kind``: the median
+    train step, the prefill span, or one decode step."""
+    if kind == "train":
+        return run["median_step_ms"] / 1e3
+    if kind == "prefill":
+        return run["prefill_s"]
+    return run["decode_ms_per_token"] / 1e3
+
+
+def check_rooflines(torch, card: str, runs: dict, dry_runs: dict) -> dict:
+    """(R1) Each run of :data:`ROOFLINE_RUNS` dry-run on meta
+    (``repro_torch.launch.dryrun.roofline``, one chip, fp32, TF32 off, the
+    card's peaks from its name): counted FLOPs and bytes, compute and
+    memory seconds, the bottleneck, the meta peak beside the run's
+    ``max_memory_allocated``, and the share = max(compute_s, memory_s) /
+    the measured seconds, which must not pass :data:`ROOFLINE_SHARE_MAX`.
+    Then the command-line dry runs :func:`start_dry_runs` started
+    (``--all`` at one chip, one pair on the (16, 16) mesh over a fake
+    process group, and one there expected to fail), a line a pair, timed;
+    the first two must count every pair, the third counts or fails with
+    its expected error."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import ShapePlan
+
+    name = torch.cuda.get_device_name(0)
+    print(f"R1 rooflines on {card} (peaks of {name!r}; fp32, TF32 off, one chip):")
+    out = {}
+    for label, run_label, arch, kind, batch, length, remat in ROOFLINE_RUNS:
+        cfg = get_config(arch).with_overrides(remat=remat)
+        r = dryrun.roofline(cfg, ShapePlan(label, kind, length, batch, "paper"), arch=arch,
+                            card=name)
+        measured = measured_span_s(runs[run_label], kind)
+        share = max(r["compute_s"], r["memory_s"]) / measured
+        peak = r["memory_per_device"]["peak_bytes"]
+        allocated = runs[run_label]["max_memory_allocated_bytes"]
+        out[label] = {**r, "measured_s": measured, "share": share,
+                      "max_memory_allocated_bytes": allocated}
+        print(f"R1 {label}: {arch} {kind} {batch} x {length}: counted {r['counted_flops']:.6e} "
+              f"FLOPs, {r['counted_bytes']:.6e} bytes; compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"memory {r['memory_s'] * 1e3:.3f} ms, bound by {r['bottleneck']}; measured "
+              f"{measured * 1e3:.3f} ms: share {share:.4f}; meta peak {peak:.6e} bytes, "
+              f"max_memory_allocated {allocated} bytes (the whole run); counted in "
+              f"{r['count_s']:.2f} s")
+        if not share <= ROOFLINE_SHARE_MAX:
+            fail(f"R1 {label}: the roofline {max(r['compute_s'], r['memory_s']):.6f} s is "
+                 f"{share:.3f} of the measured {measured:.6f} s (> {ROOFLINE_SHARE_MAX})")
+    for key, (proc, t0, stdout, stderr, extra) in dry_runs.items():
+        try:
+            proc.wait(timeout=ROOFLINE_SWEEP_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        stdout.seek(0)
+        stderr.seek(0)
+        text, errors = stdout.read().decode(), stderr.read().decode()
+        stdout.close()
+        stderr.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith(("[ok]", "[FAIL]"))]
+        for line in lines:
+            print(f"R1 {key} {line}")
+        print(f"R1 {key}: {text.strip().splitlines()[-1] if text.strip() else ''}; the process "
+              f"joined {seconds:.2f} s after it started (before T1, beside the training phases)")
+        counted = proc.returncode == 0 and lines and not any(
+            ln.startswith("[FAIL]") for ln in lines)
+        if key == "mesh_xfail":
+            expected = ROOFLINE_MESH_XFAIL[3]
+            if counted:
+                print(f"R1 mesh_xfail: counts on torch {torch.__version__}: the failure "
+                      f"expected of torch 2.11 is gone")
+            elif any(ln.startswith("[FAIL]") and expected in ln for ln in lines):
+                print(f"R1 mesh_xfail: fails as expected on torch {torch.__version__} "
+                      f"({expected!r})")
+            else:
+                fail(f"R1 dry run {' '.join(extra)} failed otherwise than expected "
+                     f"(exit {proc.returncode}): {errors[-2000:]}")
+            out[key] = {"lines": lines, "seconds": seconds, "counted": bool(counted)}
+            continue
+        if not counted:
+            fail(f"R1 dry run {' '.join(extra)} exited {proc.returncode}: {errors[-2000:]}")
+        out[key] = {"lines": lines, "seconds": seconds}
+    return out
+
+
+def start_dry_runs(torch) -> dict:
+    """Start R1's command-line dry runs on the card's host (they use the
+    CPU only): the ``--all`` sweep at one chip, :data:`ROOFLINE_MESH_PAIR`
+    and :data:`ROOFLINE_MESH_XFAIL`, the card's peaks, one thread each,
+    their output in temporary files; :func:`check_rooflines` waits for
+    them."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
+    name = torch.cuda.get_device_name(0)
+    runs = {}
+    for key, extra in (("sweep", ["--all"]),
+                       *((key, ["--arch", arch, "--shape", shape, "--mesh", mesh])
+                         for key, (arch, shape, mesh, *_) in (("mesh", ROOFLINE_MESH_PAIR),
+                                                              ("mesh_xfail",
+                                                               ROOFLINE_MESH_XFAIL)))):
+        stdout, stderr = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *extra,
+                                 "--card", name],
+                                stdout=stdout, stderr=stderr, cwd=REPO, env=env)
+        runs[key] = (proc, time.perf_counter(), stdout, stderr, extra)
+    return runs
+
+
 def run_family_round(torch, dev) -> dict:
     """(T4) The first path (blockwise8 + streaming fold, 2 clients, 1
     round) with :data:`FAMILY_JOB_ARCH` at full width through
@@ -3923,7 +4079,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.kernels import _build
 
     card = card_line()
@@ -4004,6 +4159,7 @@ def main(argv=None) -> int:
     chaos = run_chaos(torch, dev)
     live_cli = run_live_clis(torch, dev)
     checkpoints = check_checkpoints(torch, dev)
+    dry_runs = start_dry_runs(torch)
     train = {label: run_train(torch, dev, label, arch, batch, seq, layers)
              for label, arch, batch, seq, layers in TRAIN_RUNS}
     label, arch, batch, seq, layers = TRAIN_RUNS[0]
@@ -4017,6 +4173,9 @@ def main(argv=None) -> int:
     check_train_forward_only(torch, dev)
     family_round = run_family_round(torch, dev)
     family_jobs = check_family_jobs_against_cpu(torch, dev)
+    t_r1 = time.perf_counter()
+    rooflines = check_rooflines(torch, card, {**train, **family, **serve}, dry_runs)
+    print(f"R1 phase: {time.perf_counter() - t_r1:.1f} s")
     rows["slstm_scan"] = {
         **{k: slstm["serve_xlstm"][k] for k in ("shape", "ms", "us_per_step", "plain_ms",
                                                  "library_ms", "bound_ms", "bound_by",
@@ -4067,7 +4226,8 @@ def main(argv=None) -> int:
                        "serve_xlstm_cpu_parity": xlstm_cpu, "live": live,
                        "chaos": chaos, "live_cli": live_cli, "checkpoints": checkpoints,
                        "train": train, "train_cpu_parity": train_cpu,
-                       "family_round": family_round, "family_jobs_cpu_parity": family_jobs},
+                       "family_round": family_round, "family_jobs_cpu_parity": family_jobs,
+                       "rooflines": rooflines},
                       fh, indent=1)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -22,9 +22,10 @@ shapes. The scores never reach device memory.
 
 The reference's kernel is forward-only (it has no custom VJP, and
 ``jax.grad`` through it fails), and so is this one: the op is a
-``torch.autograd.Function`` whose backward raises. For a tensor on the
-CPU the wrapper runs the plain version (``ref.attention``); for a CUDA
-tensor it launches the kernel or raises. ``flash_attention.launches``
+``torch.autograd.Function`` whose backward raises. For tensors on the
+CPU, or on ``meta`` (shapes only: the dry run), the wrapper runs the
+plain version (``ref.attention``); for a CUDA tensor it launches the
+kernel or raises. ``flash_attention.launches``
 counts its kernel launches.
 """
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils.device import PLAIN_DEVICES
 
 #: the reference's tile sizes, which its model routes on (``s % 128 == 0``)
 DEFAULT_BLOCK_Q = 128
@@ -200,7 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,H,Sq,hd); k, v: (B,KV,Sk,hd), H % KV == 0 -> (B,H,Sq,hd) in
     q's dtype. Any lengths; the model routes here only at multiples of
     :data:`DEFAULT_BLOCK_Q`."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    if all(t.device.type in PLAIN_DEVICES for t in (q, k, v)):
         return ref.attention(q, k, v, causal=causal, window=window)
     return _FlashAttention.apply(q, k, v, causal, window)
 

@@ -279,7 +279,7 @@ def slstm_scan(gx: torch.Tensor, r: torch.Tensor, num_heads: int
     n = torch.zeros_like(c)
     h = torch.zeros_like(c)
     m = torch.full_like(c, SLSTM_M0)
-    out = torch.empty((B, S, D), dtype=torch.float32, device=gx.device)
+    out = gx.new_empty((B, S, D))
     for t in range(S):
         g = gx[:, t].reshape(B, 4, H, hd)
         gh = torch.einsum("bhk,hkl->bhl", h, rr).reshape(B, H, 4, hd)

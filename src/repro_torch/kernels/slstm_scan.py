@@ -20,9 +20,9 @@ The reference's kernel returns h only; this one also returns the final
 state (c, n, h, m), which prefill keeps as the decode cache (the
 reference takes it from its ``lax.scan``). Like the reference's, the
 kernel is forward-only: the op is a ``torch.autograd.Function`` whose
-backward raises. For tensors on the CPU the wrapper runs the plain
-version (``ref.slstm_scan``); for CUDA tensors it launches the kernel or
-raises. ``slstm_scan.launches`` counts its kernel launches.
+backward raises. For tensors on the CPU, or on ``meta`` (shapes only:
+the dry run), the wrapper runs the plain version (``ref.slstm_scan``);
+for CUDA tensors it launches the kernel or raises. ``slstm_scan.launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils.device import PLAIN_DEVICES
 
 #: the reference's sequence chunk (its grid step). The kernel walks the whole
 #: sequence in one launch; ``S % chunk == 0`` is checked as the reference asserts it
@@ -143,7 +144,7 @@ def slstm_scan(gx: torch.Tensor, r: torch.Tensor, *, num_heads: int,
     bf16); r: (4, H, hd, hd) fp32 -> h (B, S, D) fp32 and the final state
     (c, n, h, m), each (B, H, hd) fp32. ``S % chunk == 0``."""
     check_inputs(gx, r, num_heads, chunk)
-    if gx.device.type == "cpu" and r.device.type == "cpu":
+    if gx.device.type in PLAIN_DEVICES and r.device.type in PLAIN_DEVICES:
         return ref.slstm_scan(gx, r, num_heads)
     h, state = _SLSTMScan.apply(gx, r, num_heads)
     return h, tuple(state.unbind(0))

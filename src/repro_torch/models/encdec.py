@@ -85,6 +85,10 @@ class EncDecModel:
         """Flat ``{dotted.name: shape}`` of the parameters."""
         return L.param_shapes(self._spec)
 
+    def param_axes(self) -> dict[str, Any]:
+        """Each parameter's logical axes, in the parameters' structure."""
+        return L.build_axes(self._spec)
+
     # -- encoder ---------------------------------------------------------------
     def encode(self, params: dict[str, Any], frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, S_enc, d) stub embeddings -> encoder memory."""
@@ -172,6 +176,12 @@ class EncDecModel:
         return {name: torch.zeros(shape, dtype=dt, device=device)
                 for name, shape in (("self_k", self_shape), ("self_v", self_shape),
                                     ("cross_k", cross_shape), ("cross_v", cross_shape))}
+
+    def cache_axes(self) -> dict[str, Any]:
+        """Logical axes of the decode cache (mirrors :meth:`init_cache`)."""
+        Lx, Bx = B.LAYER, B.BATCH
+        return {"self_k": (Lx, Bx, B.SEQ, B.KV_FEAT), "self_v": (Lx, Bx, B.SEQ, B.KV_FEAT),
+                "cross_k": (Lx, Bx, B.SEQ, None, None), "cross_v": (Lx, Bx, B.SEQ, None, None)}
 
     def prefill(self, params: dict[str, Any], tokens: torch.Tensor,
                 frames: torch.Tensor) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:

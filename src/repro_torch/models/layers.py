@@ -12,6 +12,12 @@ reference's routing under its ``pallas`` backend, a CUDA tensor standing
 in for that backend — and the masked softmax ``_sdpa`` otherwise. The
 kernel is forward-only, as the reference's is. Matrix products are
 ``torch.matmul`` in fp32, as the reference leaves them to XLA.
+
+Every parameter's logical sharding axes come from the spec that builds
+it (:func:`build_axes`). Under a sharding context
+(:func:`set_sharding_context`, which the dry run installs over a
+``DeviceMesh``) :func:`constrain` redistributes DTensor activations to
+the placements those axes map to; without one it is a no-op.
 """
 from __future__ import annotations
 
@@ -90,6 +96,14 @@ def build_params(generator: torch.Generator, spec: dict[str, Any],
     return _rebuild(spec, arrays)
 
 
+def build_axes(spec: dict[str, Any]) -> Any:
+    """The logical axes of every parameter of ``spec``, in its structure:
+    a model's ``param_axes()``."""
+    if isinstance(spec, ParamDef):
+        return spec.axes
+    return {k: build_axes(v) for k, v in spec.items()}
+
+
 def param_shapes(spec: dict[str, Any]) -> dict[str, tuple[int, ...]]:
     """``{dotted.name: shape}`` of every parameter in ``spec`` — the flat
     state-dict names :func:`repro_torch.utils.trees.flatten_state_dict`
@@ -118,6 +132,86 @@ def remat_block(cfg: B.ModelConfig, fn: Any, *args: Any) -> Any:
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
                                                  preserve_rng_state=False)
     return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding context (set by the dry run; a no-op otherwise)
+# ---------------------------------------------------------------------------
+
+_SHARD_CTX: Optional[tuple[Any, dict[str, tuple[str, ...]]]] = None
+
+
+def set_sharding_context(mesh: Any, rules: Optional[dict[str, tuple[str, ...]]]) -> None:
+    """Install (a ``DeviceMesh``, logical -> mesh-axis rules) so model code
+    can constrain its activations; ``set_sharding_context(None, None)``
+    removes it. Without a context every constraint is a no-op, as in the
+    reference."""
+    global _SHARD_CTX
+    _SHARD_CTX = None if mesh is None else (mesh, rules)
+
+
+def _mesh_axis_size(axis: str) -> int:
+    if _SHARD_CTX is None:
+        return 1
+    mesh, rules = _SHARD_CTX
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return math.prod(sizes[m] for m in rules.get(axis, ()) if m in sizes)
+
+
+def constrain(x: torch.Tensor, axes: tuple[Optional[str], ...]) -> torch.Tensor:
+    """Redistribute a DTensor activation to the placements its logical
+    ``axes`` map to under the context's rules (divisibility-safe, as the
+    reference's ``with_sharding_constraint``). A plain tensor, or no
+    context, passes through."""
+    if _SHARD_CTX is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import placements, spec_for
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh, rules = _SHARD_CTX
+    target = placements(spec_for(x.shape, axes, mesh, rules), mesh)
+    return x if tuple(x.placements) == target else x.redistribute(mesh, target)
+
+
+def _qkv_axes(cfg: B.ModelConfig, s: int) -> Optional[tuple[tuple, tuple, tuple]]:
+    """The reference's choice of attention parallelism by divisibility, as
+    logical axes of q, k, v (b, s, heads, hd): heads over ``model`` when
+    both head counts divide; otherwise q over the sequence with k/v
+    replicated over ``model`` (context parallelism); at one query (decode)
+    heads or nothing. None without a sharding context."""
+    model_sz = _mesh_axis_size(B.Q_FEAT)
+    if model_sz <= 1:
+        return None
+    if cfg.num_heads % model_sz == 0 and cfg.num_kv_heads % model_sz == 0:
+        return ((B.BATCH, None, B.Q_FEAT, None), (B.BATCH, None, B.KV_FEAT, None),
+                (B.BATCH, None, B.KV_FEAT, None))
+    rest = (B.BATCH, None, None, None)
+    if s > 1 and s % model_sz == 0:
+        return (B.BATCH, B.Q_FEAT, None, None), rest, rest       # q seq-sharded
+    return rest, rest, rest
+
+
+def constrain_for_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """``x`` (b, s, features), placed so its features split into
+    ``num_heads``: where the ``model`` axis does not divide the head count,
+    the features are replicated (DTensor cannot split a dim sharded
+    unevenly); a no-op otherwise, and without a sharding context."""
+    if num_heads % _mesh_axis_size(B.Q_FEAT) == 0:
+        return x
+    return constrain(x, (B.BATCH,) + (None,) * (x.ndim - 1))
+
+
+def constrain_heads_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cfg: B.ModelConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (b, s, heads, hd) constrained by :func:`_qkv_axes`."""
+    axes = _qkv_axes(cfg, q.shape[1])
+    if axes is None:
+        return q, k, v
+    q, k, v = (constrain(t, a) for t, a in zip((q, k, v), axes))
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +294,9 @@ def _project_qkv(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    axes = _qkv_axes(cfg, s)
+    if axes is not None:   # on a mesh, place the flat features so the head split divides
+        q, k, v = (constrain(t, a[:3]) for t, a in zip((q, k, v), axes))
     q = q.reshape(bsz, s, cfg.num_heads, hd)
     k = k.reshape(bsz, s, cfg.num_kv_heads, hd)
     v = v.reshape(bsz, s, cfg.num_kv_heads, hd)
@@ -207,7 +304,7 @@ def _project_qkv(x: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig
         cos, sin = rope_table(positions, hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    return q, k, v
+    return constrain_heads_qkv(q, k, v, cfg)
 
 
 def sinusoidal_positions(s: int, d: int, dtype: torch.dtype, device: Any) -> torch.Tensor:
@@ -324,8 +421,12 @@ def attn_decode(x: torch.Tensor, p: dict[str, torch.Tensor], cache: dict[str, to
         pc = cache["pos"]
         valid = (pc >= 0) & (pc <= pos) & (pos - pc < window)
         mask = valid[:, None, None, None, :]                  # (b,1,1,1,w)
-    k_all = cache["k"].reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
-    v_all = cache["v"].reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
+    k_all, v_all = cache["k"], cache["v"]
+    axes = _qkv_axes(cfg, 1)
+    if axes is not None:   # on a mesh, read the cache so the head split divides
+        k_all, v_all = constrain(k_all, axes[1][:3]), constrain(v_all, axes[2][:3])
+    k_all = k_all.reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
+    v_all = v_all.reshape(bsz, t, cfg.num_kv_heads, hd).to(x.dtype)
     out = _sdpa(q, k_all, v_all, mask, cfg)
     return out @ p["wo"].to(x.dtype), cache
 
@@ -385,7 +486,11 @@ def embed_tokens(tokens: torch.Tensor, p: dict[str, torch.Tensor],
     # the reference's row gather; F.embedding's backward sums repeated
     # tokens in index order (deterministic), where ``weight[tokens]``
     # backs off to parallel atomic adds on the CPU
-    return torch.nn.functional.embedding(tokens, p["embedding"].to(dtype))
+    x = torch.nn.functional.embedding(tokens, p["embedding"].to(dtype))
+    # on a mesh a vocab-sharded table gives a masked partial sum, which
+    # DTensor can reduce only once: place it as a (batch, seq, embed)
+    # activation straight away (a no-op outside a sharding context)
+    return constrain(x, (B.BATCH, None, B.EMBED))
 
 
 def lm_logits(x: torch.Tensor, p: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -477,7 +582,10 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Cross-entropy with optional z-loss; labels < 0 are masked."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])
+    # on a mesh, reduce a vocab-sharded gather's masked partial while it
+    # still has its index's shape (a no-op outside a sharding context)
+    gold = constrain(gold, (B.BATCH, None, None))[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * torch.square(lse)

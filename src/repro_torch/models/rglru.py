@@ -74,8 +74,7 @@ def _combine(a1, b1, a2, b2):
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
     n = even.shape[1] + odd.shape[1]
-    out = torch.empty((even.shape[0], n) + tuple(even.shape[2:]), dtype=even.dtype,
-                      device=even.device)
+    out = even.new_empty((even.shape[0], n) + tuple(even.shape[2:]))
     out[:, 0::2] = even
     out[:, 1::2] = odd
     return out
@@ -245,6 +244,10 @@ class GriffinModel:
         """Flat ``{dotted.name: shape}`` of the parameters."""
         return L.param_shapes(self._spec)
 
+    def param_axes(self) -> dict[str, Any]:
+        """Each parameter's logical axes, in the parameters' structure."""
+        return L.build_axes(self._spec)
+
     def _groups(self, params: dict[str, Any]):
         """Each super-block in order, then the tail: (super-block index,
         or None for the tail, and its layers as (key, kind, layer
@@ -342,6 +345,23 @@ class GriffinModel:
             cache["tail"] = {f"{i}_{k}": self._layer_state(k, batch, max_len, device)
                              for i, k in enumerate(self.tail_pattern)}
         return cache
+
+    def cache_axes(self) -> dict[str, Any]:
+        """Logical axes of the decode state (mirrors :meth:`init_cache`)."""
+        def layer_axes(kind: str, with_layer: bool) -> dict[str, tuple]:
+            pre = (B.LAYER,) if with_layer else ()
+            if kind == "rglru":
+                return {"conv": pre + (B.BATCH, None, B.STATE), "h": pre + (B.BATCH, B.STATE)}
+            return {"k": pre + (B.BATCH, B.SEQ, B.KV_FEAT), "v": pre + (B.BATCH, B.SEQ, B.KV_FEAT),
+                    "pos": pre + (B.BATCH, B.SEQ)}
+
+        pat = self.cfg.block_pattern
+        axes: dict[str, Any] = {"blocks": {f"{i}_{k}": layer_axes(k, True)
+                                           for i, k in enumerate(pat)}}
+        if self.tail_pattern:
+            axes["tail"] = {f"{i}_{k}": layer_axes(k, False)
+                            for i, k in enumerate(self.tail_pattern)}
+        return axes
 
     def prefill(self, params: dict[str, Any], tokens: torch.Tensor,
                 patches: Optional[torch.Tensor] = None

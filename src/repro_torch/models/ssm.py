@@ -19,9 +19,14 @@ version. The wrapper returns h and the final state, which prefill keeps
 as the decode cache; with tracing on, the span ``kernel.slstm_scan`` times
 each recurrence.
 
-The reference's sharding hints (``L.constrain``) have no counterpart
-here. Exponential gates are stabilised with a running max ``m``, as in
-the paper's appendix.
+The sLSTM state carries the reference's sharding hint (``L.constrain``,
+a no-op outside the dry run's sharding context). Exponential gates are
+stabilised with a running max ``m``, as in the paper's appendix.
+
+The dry run (``launch/dryrun.py``) counts a step on ``meta`` tensors, where
+a loop of one step a token is too slow to run in full: inside
+:func:`cut_time_loops` the time loops here (the sLSTM cells, the sLSTM
+scan, the mLSTM chunks) run only their first few steps on meta tensors.
 """
 from __future__ import annotations
 
@@ -39,6 +44,44 @@ from repro_torch.models.transformer import _layer, _unbind_tree
 from repro_torch.obs import trace as obs_trace
 
 GATES = ("z", "i", "f", "o")
+
+#: a time loop of more steps than this may be cut (:func:`cut_time_loops`)
+CUT_ABOVE = 5
+#: the steps a cut loop runs, unless its trip count is given a longer run
+CUT_STEPS = 3
+_cut: Optional[tuple[dict[int, int], list[int]]] = None
+
+
+class _CutTimeLoops:
+    def __init__(self, longer: Optional[dict[int, int]]) -> None:
+        self.longer, self.cut = longer or {}, []
+
+    def __enter__(self) -> list[int]:
+        global _cut
+        _cut = (self.longer, self.cut)
+        return self.cut
+
+    def __exit__(self, *exc: Any) -> None:
+        global _cut
+        _cut = None
+
+
+def cut_time_loops(longer: Optional[dict[int, int]] = None) -> _CutTimeLoops:
+    """A context inside which a time loop over meta tensors of n >
+    :data:`CUT_ABOVE` steps runs its first :data:`CUT_STEPS`, or
+    ``longer[n]``; it yields the list of the trip counts it cut, one entry
+    a loop. Its outputs keep their full length: the steps left out are the
+    last step's shapes again (a meta tensor holds no values). Loops over
+    data always run in full."""
+    return _CutTimeLoops(longer)
+
+
+def _loop_steps(n: int, x: torch.Tensor) -> int:
+    """How many of a time loop's ``n`` steps over ``x`` to run."""
+    if _cut is None or x.device.type != "meta" or n <= CUT_ABOVE:
+        return n
+    _cut[1].append(n)
+    return _cut[0].get(n, CUT_STEPS)
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +135,9 @@ def mlstm_chunkwise(q, k, v, logi, logf, chunk: int = 256,
         C, n, m_prev = state
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
     hs = []
-    for start in range(0, S, chunk):
+    n_chunks = S // chunk
+    steps = _loop_steps(n_chunks, q)
+    for start in range(0, steps * chunk, chunk):
         sl = slice(start, start + chunk)
         qt, kt, vt, li, lf = q[:, :, sl], k[:, :, sl], v[:, :, sl], logi[..., sl], logf[..., sl]
         Lt = torch.cumsum(lf, dim=-1)                       # inclusive
@@ -119,6 +164,7 @@ def mlstm_chunkwise(q, k, v, logi, logf, chunk: int = 256,
         C = decay_C * C + torch.einsum("bhtd,bht,bhtv->bhdv", kt, wk, vt)
         n = decay_C[..., 0] * n + torch.einsum("bhtd,bht->bhd", kt, wk)
         m_prev = m_new
+    hs += hs[-1:] * (n_chunks - steps)   # a cut loop repeats its last chunk
     return torch.cat(hs, dim=2), (C, n, m_prev)
 
 
@@ -175,7 +221,7 @@ def _mlstm_project(xm: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelCon
     v = xm @ p["wv"].to(xm.dtype)
 
     def heads(t):
-        return t.reshape(Bsz, S, H, hd).transpose(1, 2)
+        return L.constrain_for_heads(t, H).reshape(Bsz, S, H, hd).transpose(1, 2)
 
     logi = xm @ p["w_i"].to(xm.dtype) + p["b_i"].to(xm.dtype)
     logf = F.logsigmoid((xm @ p["w_f"].to(xm.dtype)).to(torch.float32)
@@ -277,7 +323,8 @@ def slstm_gate_x(xin: torch.Tensor, p: dict[str, Any],
     sequence, outside the time loop. xin: (B,S,d) -> {name: (B,S,H,hd)}."""
     H, hd = _slstm_dims(cfg)
     Bsz, S, _ = xin.shape
-    return {name: (xin @ p[name]["w"].to(xin.dtype) + p[name]["b"].to(xin.dtype))
+    return {name: L.constrain_for_heads(xin @ p[name]["w"].to(xin.dtype)
+                                        + p[name]["b"].to(xin.dtype), H)
             .reshape(Bsz, S, H, hd) for name in GATES}
 
 
@@ -302,7 +349,9 @@ def _slstm_cell(state: dict[str, torch.Tensor], gx_t: dict[str, torch.Tensor],
     c = f_s * state["c"] + i_s * z
     n = f_s * state["n"] + i_s
     h = o * c / torch.clamp(n, min=1e-6)
-    return {"c": c, "n": n, "h": h, "m": m_new}
+    # the state stays batch-sharded under a sharding context (the reference's hint)
+    return {name: L.constrain(t, (B.BATCH, None, None))
+            for name, t in (("c", c), ("n", n), ("h", h), ("m", m_new))}
 
 
 def slstm_init_state(cfg: B.ModelConfig, batch: int, device: Any) -> dict[str, torch.Tensor]:
@@ -322,9 +371,11 @@ def _slstm_cells(gx: dict[str, torch.Tensor], p: dict[str, Any], cfg: B.ModelCon
     Bsz, S = gx["z"].shape[:2]
     state = slstm_init_state(cfg, Bsz, gx["z"].device)
     hs = []
-    for t in range(S):
+    steps = _loop_steps(S, gx["z"])
+    for t in range(steps):
         state = _slstm_cell(state, {name: g[:, t] for name, g in gx.items()}, p)
         hs.append(state["h"])
+    hs += hs[-1:] * (S - steps)          # a cut loop repeats its last h
     return torch.stack(hs, dim=1), state
 
 
@@ -338,7 +389,13 @@ def _slstm_scan(gx: dict[str, torch.Tensor], p: dict[str, Any], cfg: B.ModelConf
     Bsz, S = gx["z"].shape[:2]
     gx4 = torch.stack([gx[name] for name in GATES], dim=2).reshape(Bsz, S, 4, cfg.d_model)
     r4 = torch.stack([p[name]["r"].to(torch.float32) for name in GATES])
-    h, (c, n, h_last, m) = slstm_scan(gx4, r4, num_heads=H, chunk=S)
+    steps = _loop_steps(S, gx4)
+    if steps == S:
+        h, (c, n, h_last, m) = slstm_scan(gx4, r4, num_heads=H, chunk=S)
+    else:   # a cut loop: the first steps, then an h of the full length in place of theirs
+        h, (c, n, h_last, m) = slstm_scan(gx4[:, :steps], r4, num_heads=H, chunk=steps)
+        del h
+        h = gx4.new_empty((Bsz, S, cfg.d_model), dtype=torch.float32)
     return h, {"c": c, "n": n, "h": h_last, "m": m}
 
 
@@ -402,6 +459,10 @@ class XLSTMModel:
         """Flat ``{dotted.name: shape}`` of the parameters."""
         return L.param_shapes(self._spec)
 
+    def param_axes(self) -> dict[str, Any]:
+        """Each parameter's logical axes, in the parameters' structure."""
+        return L.build_axes(self._spec)
+
     # -- forward / loss ------------------------------------------------------
     def forward(self, params: dict[str, Any],
                 tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -433,6 +494,15 @@ class XLSTMModel:
         one = {"mlstm": mlstm_init_state(self.cfg, batch, device),
                "slstm": slstm_init_state(self.cfg, batch, device)}
         return _stack_states([one] * self.n_super)
+
+    def cache_axes(self) -> dict[str, Any]:
+        """Logical axes of the recurrent state (mirrors :meth:`init_cache`)."""
+        Lx, Bx, ST = B.LAYER, B.BATCH, B.STATE
+        return {
+            "mlstm": {"C": (Lx, Bx, None, ST, None), "n": (Lx, Bx, None, ST),
+                      "m": (Lx, Bx, None), "conv": (Lx, Bx, None, B.MLP)},
+            "slstm": {name: (Lx, Bx, None, ST) for name in ("c", "n", "h", "m")},
+        }
 
     def prefill(self, params: dict[str, Any],
                 tokens: torch.Tensor) -> tuple[torch.Tensor, dict[str, Any]]:

@@ -115,6 +115,10 @@ class DecoderLM:
         """Flat ``{dotted.name: shape}`` of the parameters."""
         return L.param_shapes(self._spec)
 
+    def param_axes(self) -> dict[str, Any]:
+        """Each parameter's logical axes, in the parameters' structure."""
+        return L.build_axes(self._spec)
+
     # -- forward / loss ------------------------------------------------------
     def forward(self, params: dict[str, Any], tokens: torch.Tensor,
                 patches: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -157,6 +161,14 @@ class DecoderLM:
             one = L.init_full_cache(cfg, batch, max_len, cfg.activ_dtype, device)
         return {k: v.unsqueeze(0).repeat((cfg.num_layers,) + (1,) * v.ndim)
                 for k, v in one.items()}
+
+    def cache_axes(self) -> dict[str, Any]:
+        """Logical axes of the decode cache (mirrors :meth:`init_cache`)."""
+        axes = {"k": (B.LAYER, B.BATCH, B.SEQ, B.KV_FEAT),
+                "v": (B.LAYER, B.BATCH, B.SEQ, B.KV_FEAT)}
+        if self.cfg.sliding_window is not None:
+            axes["pos"] = (B.LAYER, B.BATCH, B.SEQ)
+        return axes
 
     def prefill(self, params: dict[str, Any], tokens: torch.Tensor,
                 patches: Optional[torch.Tensor] = None

@@ -4,12 +4,18 @@ Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` they take ``cuda`` and raise when CUDA is absent — they never
 carry on quietly on the CPU. Those that train turn TF32 off on CUDA
 (:func:`disable_tf32`), so matmuls run in fp32 like the reference's.
+Kernel wrappers take their plain version for tensors on
+:data:`PLAIN_DEVICES`.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+
+#: the devices whose tensors take a kernel's plain version: the CPU, and
+#: ``meta`` (shapes without data, on which no kernel can run: the dry run)
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def resolve_device(device: Optional[Any] = None) -> torch.device:

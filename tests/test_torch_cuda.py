@@ -725,3 +725,25 @@ def test_training_at_seq_128_raises_on_the_card(cuda):
         train_loop(get_smoke_config("llama3.2-1b"), steps=1, batch_size=2, seq_len=128,
                    log_every=0, device=cuda)
     assert flash_attention.launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_or_raise_while_meta_takes_the_plain_version(cuda):
+    """The dispatch rule on the card's side: meta tensors (the dry run)
+    take B7's and B8's plain versions and launch nothing, while CUDA
+    tensors the kernels cannot take raise — B7 at a head dim it was not
+    built for, B8 past its largest head dim — and never fall back."""
+    before = ops.launch_counts()
+    q = torch.zeros((1, 4, 128, 64), device="meta")
+    assert tuple(flash_attention(q, q, q, causal=True).shape) == (1, 4, 128, 64)
+    h, _state = slstm_scan(torch.zeros((1, 8, 4, 64), device="meta"),
+                           torch.zeros((4, 2, 32, 32), device="meta"), num_heads=2, chunk=8)
+    assert tuple(h.shape) == (1, 8, 64)
+    assert ops.launch_counts() == before
+    q = torch.zeros((1, 2, 128, 32), device=cuda)
+    with pytest.raises(ValueError, match="built for"):
+        flash_attention(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        slstm_scan(torch.zeros((1, 8, 4, 512), device=cuda),
+                   torch.zeros((4, 1, 512, 512), device=cuda), num_heads=1, chunk=8)
+    assert ops.launch_counts() == before

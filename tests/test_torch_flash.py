@@ -142,8 +142,12 @@ def _meta(*shape, dtype=torch.float32):
      "key length"),
     ((_meta(1, 4, 128, 64), _meta(1, 2, 128, 64), _meta(1, 2, 128, 64)), "CUDA tensor"),
 ])
-def test_non_cpu_tensors_are_checked_and_never_fall_back(bad, match):
+def test_non_cpu_tensors_are_checked_and_never_fall_back(bad, match, monkeypatch):
     """Off the CPU the wrapper launches the kernel or raises — here meta
-    tensors, which it checks and refuses."""
+    tensors, which it checks and refuses. (Meta tensors take the plain
+    version since the dry run, ``utils.device.PLAIN_DEVICES``; the CPU
+    alone is made the plain device here, so that they stand in for CUDA
+    tensors on the launch branch.)"""
+    monkeypatch.setattr(FA, "PLAIN_DEVICES", ("cpu",))
     with pytest.raises(ValueError, match=match):
         FA.flash_attention(*bad)

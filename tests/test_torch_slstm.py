@@ -36,6 +36,7 @@ from repro.kernels.slstm_scan import slstm_scan_pallas  # noqa: E402
 from repro.models import ssm as ref_ssm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.cases import SLSTM_CASES, slstm_case, slstm_inputs  # noqa: E402
+from repro_torch.kernels import slstm_scan as slstm_scan_module  # noqa: E402
 from repro_torch.kernels.slstm_scan import slstm_scan  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -134,7 +135,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_no_launch(name):
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
-def test_wrapper_raises_on_what_it_does_not_take():
+def test_wrapper_raises_on_what_it_does_not_take(monkeypatch):
     gx = torch.zeros((1, 32, 4, 256))
     r = torch.zeros((4, 4, 64, 64))
     with pytest.raises(ValueError, match="multiple of the chunk"):
@@ -154,7 +155,10 @@ def test_wrapper_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="heads"):
         slstm_scan(gx, r, num_heads=3, chunk=8)
     # what only the kernel refuses, reached through tensors that are not on
-    # the CPU (the meta device allocates nothing)
+    # the CPU (the meta device allocates nothing; it takes the plain version
+    # since the dry run, so the CPU alone is made the plain device here and
+    # meta stands in for CUDA on the launch branch)
+    monkeypatch.setattr(slstm_scan_module, "PLAIN_DEVICES", ("cpu",))
     big = torch.empty((1, 32, 4, 2 * 257), device="meta")
     with pytest.raises(ValueError, match="head dim 257 > 256"):
         slstm_scan(big, torch.empty((4, 2, 257, 257), device="meta"), num_heads=2, chunk=8)
