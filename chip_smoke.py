@@ -157,6 +157,17 @@ xlstm-125m at full width (B1, B2 and B3 as its 33 items imply) and the
 xlstm-125m and recurrentgemma-2b smoke specs with fixed updates card vs
 CPU, bitwise.
 
+Before the trainer, (E1) the port's five examples (``examples/torch``:
+quickstart, streaming_demo, async_federation, hetero_federation,
+serve_batch) run on the card, each against its own CPU run in this
+process from the same weights (the federations at ``EXAMPLE_ROUNDS``
+rounds on both sides alike): async and hetero print the same bytes,
+streaming the same MemoryMeter peaks, nf4 checkpoint bytes and error,
+serve_batch the same greedy tokens, quickstart the same message count
+with losses and wire bytes within the CPU test's bounds. Each prints its
+card and CPU seconds and its B1/B2/B4/B5/B8 launches, counted from zero;
+every kernel an example implies must have launched.
+
 Last (R1), the roofline of five of those full-width steps: each is
 dry-run on the meta device (``repro_torch.launch.dryrun``: the same
 arch, shape, fp32 and TF32 off, one chip, the peaks of the card by its
@@ -166,11 +177,13 @@ bytes, compute and memory seconds, bottleneck, meta peak (beside the
 run's ``max_memory_allocated``) and share = max(compute_s, memory_s) /
 the measured seconds are printed; a share above 1.05 fails (the count
 would be wrong). Then ``python -m repro_torch.launch.dryrun --all`` at one
-chip and one pair on the (16, 16) mesh over a fake process group, a line
-a pair, timed, and one pair there that torch 2.11's DTensor is expected to
-refuse (it must fail with that error or count): they run on the host's
-CPU in subprocesses started before (T1), beside the training phases, so
-T1's times are taken while they run.
+chip and the pairs of ``ROOFLINE_MESH_PAIRS`` on the (16, 16) mesh over a
+fake process group (one from each class torch 2.11 refused before the
+repair, and granite-8b's decode), a line a pair, timed; every one must
+count. They run on the host's CPU in subprocesses started before (E1),
+beside the examples and the training phases, so T1's times are taken
+while they run. (The whole ``--mesh 16x16`` sweep does not join in
+``ROOFLINE_SWEEP_TIMEOUT_S`` beside them; it is a chip call of its own.)
 
 ``--svd-drivers`` also times both exact cuSOLVER SVD drivers (``gesvd``,
 ``gesvdj``) once on the largest decomposed item, the measurement that
@@ -416,16 +429,27 @@ ROOFLINE_RUNS = (("train_llama", "train_llama", "llama3.2-1b", "train", 4, 192, 
                  ("serve_full_prefill", "serve_full", "llama3.2-1b", "prefill", 4, 512, False))
 #: a roofline above the measured time means the count is wrong
 ROOFLINE_SHARE_MAX = 1.05
-#: the pair dry-run here on the (16, 16) mesh over a fake group of 256 ranks,
-#: on the card machine's torch, which must count
-ROOFLINE_MESH_PAIR = ("granite-8b", "decode_32k", "16x16")
-#: a pair expected to fail there, and the error it fails with: torch 2.11's
-#: DTensor refuses to flatten two sharded dims (batch over data, heads over
-#: model) of a head-sharded einsum, which the CPU sandbox's torch 2.13 runs
-#: (ROADMAP A, item 2). It runs to show the failure and when it is gone
-ROOFLINE_MESH_XFAIL = ("qwen1.5-0.5b", "decode_32k", "16x16",
-                       "Attempted to flatten multiple dimensions")
+#: the pairs dry-run here on the (16, 16) mesh over a fake group of 256
+#: ranks, on the card machine's torch, each of which must count: granite-8b's
+#: decode, and one pair from each class torch 2.11's DTensor refused before
+#: the models ran their mesh steps on local shards (ROADMAP A, item 2): a
+#: flatten of two sharded dims (qwen1.5-0.5b's head-sharded decode), an
+#: uneven split of a sharded dim (whisper-small's cross-attention, 12 heads
+#: on 16), a shard asked for a partial (recurrentgemma-2b's gate bias) and a
+#: missing strategy (xlstm-125m's log_sigmoid_backward)
+ROOFLINE_MESH_PAIRS = (("granite-8b", "decode_32k"), ("qwen1.5-0.5b", "decode_32k"),
+                       ("whisper-small", "decode_32k"), ("recurrentgemma-2b", "train_4k"),
+                       ("xlstm-125m", "train_4k"))
 ROOFLINE_SWEEP_TIMEOUT_S = 300
+#: (E1) the port's examples run on the card and against the CPU; the
+#: federations (quickstart, async, hetero) at this many rounds on both
+#: sides alike (time)
+EXAMPLES = ("quickstart", "streaming_demo", "async_federation", "hetero_federation",
+            "serve_batch")
+EXAMPLE_ROUNDS = 2
+#: quickstart card vs CPU: its CPU test's bounds (C1's drift)
+EXAMPLE_LOSS_ATOL = 1e-3
+EXAMPLE_BYTES_RTOL = 1e-3
 
 BW8_SOURCE = "src/repro_torch/kernels/csrc/blockwise8.cu"
 FB4_SOURCE = "src/repro_torch/kernels/csrc/fourbit.cu"
@@ -3938,6 +3962,148 @@ def check_family_jobs_against_cpu(torch, dev) -> dict:
     return report
 
 
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a fresh module, its ``ROUNDS`` (if
+    any) cut to :data:`EXAMPLE_ROUNDS`."""
+    import importlib.util
+
+    path = os.path.join(REPO, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    if hasattr(module, "ROUNDS"):
+        module.ROUNDS = EXAMPLE_ROUNDS
+    return module
+
+
+def captured(fn, *args):
+    """``fn(*args)`` and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+#: (E1) the kernels each example must launch on the card
+EXAMPLE_KERNELS = {
+    "quickstart": ("quantize_blockwise8", "dequantize_blockwise8"),
+    "streaming_demo": ("quantize_4bit", "dequantize_4bit"),
+    "async_federation": ("quantize_blockwise8", "dequantize_blockwise8"),
+    "hetero_federation": ("quantize_blockwise8", "dequantize_blockwise8", "quantize_4bit",
+                          "dequantize_4bit"),
+    "serve_batch": ("slstm_scan",),
+}
+EXAMPLE_SECONDS = re.compile(r"\d+\.\d+s\b")
+EXAMPLE_LOSS = re.compile(r"(site-\d): round (\d+) local loss ([\d.]+)")
+
+
+def _example_on(torch, ex, name: str, device, state: dict):
+    """One run of example ``name`` on ``device``: (what the comparison
+    reads, the printed text). ``state`` carries the card's weights to
+    the CPU run."""
+    from repro_torch.models import create_model
+    from repro_torch.utils.trees import flatten_state_dict, unflatten_state_dict
+
+    def on(tree):
+        flat = {k: v.to(device) for k, v in flatten_state_dict(tree).items()}
+        return unflatten_state_dict(flat)
+
+    if name == "quickstart":
+        if "init" not in state:
+            state["init"] = flatten_state_dict(create_model(ex.make_config()).init(0, device))
+        (sim, final), text = captured(ex.run, device,
+                                      {k: v.to(device, copy=True)
+                                       for k, v in state["init"].items()})
+        return {"messages": sim.stats.messages, "bytes": sim.stats.bytes_sent,
+                "losses": EXAMPLE_LOSS.findall(text), "tensors": len(final)}, text
+    if name == "streaming_demo":
+        result, text = captured(ex.run, device)
+        return {**result, "text": EXAMPLE_SECONDS.sub("_", text)}, text
+    if name == "serve_batch":
+        tokens, texts = {}, []
+        for arch in ex.ARCHS:
+            if arch not in state:
+                state[arch] = ex.build(arch).init(0, device)
+            out, text = captured(ex.serve, arch, device, on(state[arch]))
+            tokens[arch] = out.cpu().numpy().tolist()
+            texts.append(text)
+        return {"tokens": tokens}, "".join(texts)
+    _, text = captured(ex.main, ["--device", str(device)])     # async, hetero
+    return {"stdout": text}, text
+
+
+def run_examples(torch, dev) -> dict:
+    """(E1) Each of the port's examples on the card, then on the CPU in
+    this process from the card's weights, held to its CPU test's
+    criteria: async and hetero the same printed bytes; streaming the same
+    MemoryMeter peaks, nf4 checkpoint bytes and error (its text equal once
+    the seconds are blanked); serve_batch the same greedy tokens;
+    quickstart the same message count, each printed loss within
+    :data:`EXAMPLE_LOSS_ATOL` and the wire bytes within
+    :data:`EXAMPLE_BYTES_RTOL`. The launch counters are zeroed before
+    each card run; every kernel of :data:`EXAMPLE_KERNELS` must launch.
+    One torch thread: R1's dry runs run beside on the host's cores, and a
+    pool of one thread a core then stalls at every barrier (quickstart's
+    CPU run took 66.5 s with 8 threads beside one busy core on an 8-core
+    CPU host, 3.2 s with one)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    t_phase = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for name in EXAMPLES:
+            out[name] = _run_example(torch, ops, dev, name)
+    finally:
+        torch.set_num_threads(threads)
+    print(f"E1 phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _run_example(torch, ops, dev, name: str) -> dict:
+    """(E1) Example ``name`` on the card and then on the CPU; see
+    :func:`run_examples`."""
+    ex = load_example(name)
+    state: dict = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card, card_text = _example_on(torch, ex, name, dev, state)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    t0 = time.perf_counter()
+    cpu, _ = _example_on(torch, ex, name, torch.device("cpu"), state)
+    cpu_s = time.perf_counter() - t0
+    if name == "quickstart":
+        ok = (card["messages"] == cpu["messages"] and card["tensors"] == cpu["tensors"]
+              and [c[:2] for c in card["losses"]] == [c[:2] for c in cpu["losses"]]
+              and all(abs(float(a[2]) - float(b[2])) <= EXAMPLE_LOSS_ATOL
+                      for a, b in zip(card["losses"], cpu["losses"]))
+              and abs(card["bytes"] - cpu["bytes"]) <= EXAMPLE_BYTES_RTOL * cpu["bytes"])
+    else:
+        ok = card == cpu
+    if not ok:
+        fail(f"E1 {name}: the card's run differs from the CPU's: {card} vs {cpu}")
+    missing = [k for k in EXAMPLE_KERNELS[name] if not launches[k]]
+    if missing:
+        fail(f"E1 {name}: {missing} never launched on the card ({launches})")
+    if name == "streaming_demo" and not (launches["quantize_4bit"]
+                                         == launches["dequantize_4bit"] == 9):
+        fail(f"E1 streaming_demo: nf4 checkpoint of 9 items launched {launches}")
+    shown = {k: v for k, v in launches.items() if v}
+    print(f"E1 {name}: card {card_s:.3f} s, CPU {cpu_s:.3f} s, equal to the CPU's run; "
+          f"launches {shown}")
+    for line in card_text.strip().splitlines():
+        print(f"E1 {name} | {line}")
+    return {"card_s": card_s, "cpu_s": cpu_s, "launches": launches,
+            "card": card if name != "streaming_demo" else
+            {k: v for k, v in card.items() if k != "text"}}
+
+
 def measured_span_s(run: dict, kind: str) -> float:
     """The seconds ``run`` measured for one step of ``kind``: the median
     train step, the prefill span, or one decode step."""
@@ -3956,10 +4122,9 @@ def check_rooflines(torch, card: str, runs: dict, dry_runs: dict) -> dict:
     ``max_memory_allocated``, and the share = max(compute_s, memory_s) /
     the measured seconds, which must not pass :data:`ROOFLINE_SHARE_MAX`.
     Then the command-line dry runs :func:`start_dry_runs` started
-    (``--all`` at one chip, one pair on the (16, 16) mesh over a fake
-    process group, and one there expected to fail), a line a pair, timed;
-    the first two must count every pair, the third counts or fails with
-    its expected error."""
+    (``--all`` at one chip, and each pair of :data:`ROOFLINE_MESH_PAIRS`
+    on the (16, 16) mesh over a fake process group), a line a pair,
+    timed; each must count every pair."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.specs import ShapePlan
@@ -4006,19 +4171,6 @@ def check_rooflines(torch, card: str, runs: dict, dry_runs: dict) -> dict:
               f"joined {seconds:.2f} s after it started (before T1, beside the training phases)")
         counted = proc.returncode == 0 and lines and not any(
             ln.startswith("[FAIL]") for ln in lines)
-        if key == "mesh_xfail":
-            expected = ROOFLINE_MESH_XFAIL[3]
-            if counted:
-                print(f"R1 mesh_xfail: counts on torch {torch.__version__}: the failure "
-                      f"expected of torch 2.11 is gone")
-            elif any(ln.startswith("[FAIL]") and expected in ln for ln in lines):
-                print(f"R1 mesh_xfail: fails as expected on torch {torch.__version__} "
-                      f"({expected!r})")
-            else:
-                fail(f"R1 dry run {' '.join(extra)} failed otherwise than expected "
-                     f"(exit {proc.returncode}): {errors[-2000:]}")
-            out[key] = {"lines": lines, "seconds": seconds, "counted": bool(counted)}
-            continue
         if not counted:
             fail(f"R1 dry run {' '.join(extra)} exited {proc.returncode}: {errors[-2000:]}")
         out[key] = {"lines": lines, "seconds": seconds}
@@ -4027,20 +4179,19 @@ def check_rooflines(torch, card: str, runs: dict, dry_runs: dict) -> dict:
 
 def start_dry_runs(torch) -> dict:
     """Start R1's command-line dry runs on the card's host (they use the
-    CPU only): the ``--all`` sweep at one chip, :data:`ROOFLINE_MESH_PAIR`
-    and :data:`ROOFLINE_MESH_XFAIL`, the card's peaks, one thread each,
-    their output in temporary files; :func:`check_rooflines` waits for
-    them."""
+    CPU only): the ``--all`` sweep at one chip and each pair of
+    :data:`ROOFLINE_MESH_PAIRS` on the (16, 16) mesh, the card's peaks,
+    one thread each, their output in temporary files;
+    :func:`check_rooflines` waits for them."""
     import tempfile
 
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"), OMP_NUM_THREADS="1")
     name = torch.cuda.get_device_name(0)
     runs = {}
     for key, extra in (("sweep", ["--all"]),
-                       *((key, ["--arch", arch, "--shape", shape, "--mesh", mesh])
-                         for key, (arch, shape, mesh, *_) in (("mesh", ROOFLINE_MESH_PAIR),
-                                                              ("mesh_xfail",
-                                                               ROOFLINE_MESH_XFAIL)))):
+                       *((f"mesh {arch} {shape}",
+                          ["--arch", arch, "--shape", shape, "--mesh", "16x16"])
+                         for arch, shape in ROOFLINE_MESH_PAIRS)):
         stdout, stderr = tempfile.TemporaryFile(), tempfile.TemporaryFile()
         proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *extra,
                                  "--card", name],
@@ -4160,6 +4311,7 @@ def main(argv=None) -> int:
     live_cli = run_live_clis(torch, dev)
     checkpoints = check_checkpoints(torch, dev)
     dry_runs = start_dry_runs(torch)
+    examples = run_examples(torch, dev)
     train = {label: run_train(torch, dev, label, arch, batch, seq, layers)
              for label, arch, batch, seq, layers in TRAIN_RUNS}
     label, arch, batch, seq, layers = TRAIN_RUNS[0]
@@ -4227,7 +4379,7 @@ def main(argv=None) -> int:
                        "chaos": chaos, "live_cli": live_cli, "checkpoints": checkpoints,
                        "train": train, "train_cpu_parity": train_cpu,
                        "family_round": family_round, "family_jobs_cpu_parity": family_jobs,
-                       "rooflines": rooflines},
+                       "examples": examples, "rooflines": rooflines},
                       fh, indent=1)
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -310,6 +311,29 @@ def _batch_tree(tree: Any, mesh: Any, rules: dict) -> Any:
 # the steps
 # ---------------------------------------------------------------------------
 
+@functools.cache
+def register_missing_strategies() -> None:
+    """Give DTensor the sharding strategies a step needs and it lacks (on
+    torch 2.11 and 2.13 alike, through the same public
+    ``register_sharding``): ``aten.log_sigmoid_backward``, which the
+    xLSTM's ``F.logsigmoid`` reaches in the backward, is pointwise in its
+    three inputs (the gradient, the input and the forward's buffer, of the
+    input's shape on ``meta``), so all three replicated or all three
+    sharded on one dim. Registered once a process; DTensor's table is
+    global."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.log_sigmoid_backward.default)
+    def _log_sigmoid_backward(grad_output, x, buffer):
+        del grad_output
+        whole = tuple(buffer.shape) == tuple(x.shape)   # an empty buffer stays replicated
+        out = [([Replicate()], [Replicate(), Replicate(), Replicate()])]
+        for d in range(x.ndim):
+            out.append(([Shard(d)], [Shard(d), Shard(d), Shard(d) if whole else Replicate()]))
+        return out
+
+
 def build_step(cfg, plan: ShapePlan, mesh=None, rules=None):
     """Returns (step_fn, args): the step of ``plan.kind`` and its meta
     arguments, DTensors placed by ``rules`` when ``mesh`` is given."""
@@ -318,6 +342,7 @@ def build_step(cfg, plan: ShapePlan, mesh=None, rules=None):
     params = params_specs(cfg)
     specs = input_specs(cfg, plan)
     if mesh is not None:
+        register_missing_strategies()
         p_entries = SH.tree_shardings(params, model.param_axes(), mesh, rules)
         params = _shard_tree(params, p_entries, mesh)
 

@@ -194,12 +194,19 @@ def _qkv_axes(cfg: B.ModelConfig, s: int) -> Optional[tuple[tuple, tuple, tuple]
     return rest, rest, rest
 
 
+def heads_axis(num_heads: int) -> Optional[str]:
+    """The logical axis of a dim of ``num_heads`` heads (or of their
+    features, heads outermost): ``Q_FEAT`` (over ``model``) where the
+    ``model`` axis divides the head count, else None (replicated)."""
+    return B.Q_FEAT if num_heads % _mesh_axis_size(B.Q_FEAT) == 0 else None
+
+
 def constrain_for_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """``x`` (b, s, features), placed so its features split into
     ``num_heads``: where the ``model`` axis does not divide the head count,
     the features are replicated (DTensor cannot split a dim sharded
     unevenly); a no-op otherwise, and without a sharding context."""
-    if num_heads % _mesh_axis_size(B.Q_FEAT) == 0:
+    if heads_axis(num_heads) is not None:
         return x
     return constrain(x, (B.BATCH,) + (None,) * (x.ndim - 1))
 
@@ -214,11 +221,140 @@ def constrain_heads_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return q, k, v
 
 
+def splits(n: int, axis: str) -> bool:
+    """Whether a dim of ``n`` along logical ``axis`` splits over its mesh
+    axes under the sharding context (divisibility-safe, as
+    :func:`constrain` places it); False without a context."""
+    if _SHARD_CTX is None:
+        return False
+    from repro_torch.launch.sharding import spec_for
+
+    mesh, rules = _SHARD_CTX
+    return spec_for((n,), (axis,), mesh, rules)[0] is not None
+
+
+def is_sharded(x: Any) -> bool:
+    """True under a sharding context for a DTensor ``x``: the model code
+    takes its mesh path (:func:`on_local_shards`) only then."""
+    if _SHARD_CTX is None:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous. A local shard's
+    gradient comes back wrapped in its DTensor's global (contiguous)
+    layout; a transposed local gradient under it makes the backward's
+    next view fail ("view size is not compatible", whisper-small's train
+    step on 2 x 16 x 16)."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor) -> torch.Tensor:
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> torch.Tensor:
+        return grad.contiguous()
+
+
+def on_local_shards(fn: Any, out_placements: Any, *args: Any) -> Any:
+    """``fn(*args)`` run on each device's local shards, as DTensor's
+    ``local_map`` runs it: every DTensor among ``args`` goes in as its
+    local tensor (plain tensors go in as they are, replicated), and each
+    tensor leaf of ``fn``'s result becomes a DTensor placed by the
+    matching entry of ``out_placements`` (a placements tuple, or a tree of
+    them shaped like the result). For a computation that needs no
+    communication once its inputs are placed, e.g. attention with the
+    batch over ``data`` and heads (or the query's sequence) over
+    ``model``: DTensor would otherwise lower it op by op, and torch 2.11
+    refuses the ``bmm`` lowering of an einsum that flattens two sharded
+    dims. An input replicated over a mesh dim that splits another input
+    takes a partial gradient on that dim, since each device's shard
+    contributes its share."""
+    from torch.distributed.tensor import DTensor, Partial
+    from torch.utils import _pytree as pytree
+
+    dtensors = [a for a in args if isinstance(a, DTensor)]
+    if any(p.is_partial() for a in dtensors for p in a.placements):
+        raise ValueError("on_local_shards needs its inputs reduced: a partial local shard "
+                         "is not the input's value")
+    mesh = dtensors[0].device_mesh
+    split = {i for a in dtensors for i, p in enumerate(a.placements) if p.is_shard()}
+
+    def local(a: Any) -> Any:
+        if not isinstance(a, DTensor):
+            return a
+        grads = tuple(Partial() if i in split and p.is_replicate() else p
+                      for i, p in enumerate(a.placements))
+        # contiguous both ways: DTensor wraps a local gradient in the
+        # input's global layout, so the two must agree
+        return _ContiguousGrad.apply(a.contiguous().to_local(grad_placements=grads))
+
+    def place(t: torch.Tensor, placements: tuple) -> torch.Tensor:
+        # the global shape and a contiguous layout given: inferred from a
+        # local shard with a dim of size 1, DTensor's strides are wrong
+        shape = list(t.shape)
+        for p, n in zip(placements, mesh.shape):
+            if p.is_shard():
+                shape[p.dim] *= n
+        stride = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            stride[d] = stride[d + 1] * shape[d + 1]
+        return DTensor.from_local(t.contiguous(), mesh, placements, run_check=False,
+                                  shape=torch.Size(shape), stride=tuple(stride))
+
+    out = fn(*(local(a) for a in args))
+    leaves, spec = pytree.tree_flatten(out)
+    placed = pytree.tree_leaves(out_placements, is_leaf=lambda t: isinstance(t, tuple)
+                                and all(not isinstance(p, tuple) for p in t))
+    if len(placed) != len(leaves):
+        raise ValueError(f"{len(leaves)} outputs but {len(placed)} placements")
+    return pytree.tree_unflatten([place(t, p) for t, p in zip(leaves, placed)], spec)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
+class _ReducePartial(torch.autograd.Function):
+    """DTensor ``x`` with its partial sums reduced (all-reduce); the
+    gradient passes back in the output's placements, replicated where
+    ``x`` was partial. (DTensor's own redistribution would hand back a
+    partial gradient, and every product of the backward would then run
+    at full width on each device.)"""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import Replicate
+
+        return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                                   for p in x.placements))
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> torch.Tensor:
+        from torch.distributed.tensor import Replicate
+
+        target = tuple(Replicate() if p.is_partial() else p for p in grad.placements)
+        return grad if tuple(grad.placements) == target else grad.redistribute(
+            grad.device_mesh, target)
+
+
+def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+    """On a mesh, ``x`` with every partial sum reduced (its shards kept):
+    a norm's input, as XLA reduces a contraction's partial sum (the
+    residual stream after a row-parallel product) before a non-linear op.
+    Left to DTensor, torch 2.13 reduce-scatters it over the sequence
+    instead, and the next product then flattens (batch, sequence) with
+    both sharded. A no-op for a plain tensor and without a context."""
+    if not is_sharded(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    return _ReducePartial.apply(x)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x = reduce_partial(x)
     dtype = x.dtype
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
@@ -227,6 +363,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    x = reduce_partial(x)
     dtype = x.dtype
     x32 = x.to(torch.float32)
     mu = torch.mean(x32, dim=-1, keepdim=True)
@@ -317,12 +454,12 @@ def sinusoidal_positions(s: int, d: int, dtype: torch.dtype, device: Any) -> tor
     return torch.from_numpy(table).to(device=device, dtype=dtype)
 
 
-def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
-          cfg: B.ModelConfig) -> torch.Tensor:
-    """q: (b,s,H,hd); k,v: (b,t,KV,hd); mask: True = attend, broadcast
-    against the (b,KV,G,s,t) scores — (s,t), or (b,1,1,1,t) from decode."""
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """The masked softmax: q (b,s,H,hd); k,v (b,t,KV,hd); mask: True =
+    attend, broadcast against the (b,KV,G,s,t) scores -> (b,s,H*hd)."""
     bsz, s, H, hd = q.shape
-    KV = cfg.num_kv_heads
+    KV = k.shape[2]
     G = H // KV
     qg = q.reshape(bsz, s, KV, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
@@ -331,6 +468,36 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v)
     return out.reshape(bsz, s, H * hd)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+          cfg: B.ModelConfig) -> torch.Tensor:
+    """q: (b,s,H,hd); k,v: (b,t,KV,hd); mask: True = attend, broadcast
+    against the (b,KV,G,s,t) scores — (s,t), or (b,1,1,1,t) from decode.
+
+    On a mesh (a sharding context and DTensor inputs) q, k and v are
+    placed by :func:`_qkv_axes` and each device attends over its own
+    shards, with no communication: the batch splits over ``data`` and the
+    heads, or q's sequence (then with the mask's rows), over ``model``. A
+    sequence-sharded output is moved to features over ``model`` (heads
+    outermost, as the heads-sharded case leaves it), so the output
+    projection flattens (b, s) with only the batch sharded."""
+    if not is_sharded(q):
+        return _attend(q, k, v, mask)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    q, k, v = constrain_heads_qkv(q, k, v, cfg)
+    mesh = _SHARD_CTX[0]
+    seq_dims = [i for i, p in enumerate(q.placements) if p == Shard(1)]
+    if isinstance(mask, DTensor):
+        mask = constrain(mask, (B.BATCH,) + (None,) * (mask.ndim - 1))
+    elif seq_dims and mask.shape[-2] > 1:   # each device keeps its queries' rows
+        rows = tuple(Shard(mask.ndim - 2) if i in seq_dims else Replicate()
+                     for i in range(mesh.ndim))
+        mask = DTensor.from_local(mask, mesh, (Replicate(),) * mesh.ndim,
+                                  run_check=False).redistribute(mesh, rows)
+    out = on_local_shards(_attend, tuple(q.placements), q, k, v, mask)
+    return constrain(out, (B.BATCH, None, B.Q_FEAT)) if seq_dims else out
 
 
 def sdpa_or_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: B.ModelConfig, *,
@@ -442,11 +609,13 @@ def cross_attn_forward(x: torch.Tensor, memory: Optional[torch.Tensor],
     Returns (out, (k, v)) so prefill can cache the projected memory."""
     bsz, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(bsz, s, cfg.num_heads, hd)
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    # on a mesh, the features are placed so that the head split divides
+    q = constrain_for_heads(x @ p["wq"].to(x.dtype), H).reshape(bsz, s, H, hd)
     if kv is None:
         t = memory.shape[1]
-        k = (memory @ p["wk"].to(x.dtype)).reshape(bsz, t, cfg.num_kv_heads, hd)
-        v = (memory @ p["wv"].to(x.dtype)).reshape(bsz, t, cfg.num_kv_heads, hd)
+        k = constrain_for_heads(memory @ p["wk"].to(x.dtype), KV).reshape(bsz, t, KV, hd)
+        v = constrain_for_heads(memory @ p["wv"].to(x.dtype), KV).reshape(bsz, t, KV, hd)
     else:
         k, v = kv
     mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
@@ -488,9 +657,12 @@ def embed_tokens(tokens: torch.Tensor, p: dict[str, torch.Tensor],
     # backs off to parallel atomic adds on the CPU
     x = torch.nn.functional.embedding(tokens, p["embedding"].to(dtype))
     # on a mesh a vocab-sharded table gives a masked partial sum, which
-    # DTensor can reduce only once: place it as a (batch, seq, embed)
-    # activation straight away (a no-op outside a sharding context)
-    return constrain(x, (B.BATCH, None, B.EMBED))
+    # DTensor can reduce only once: reduce it, then place it as a (batch,
+    # seq, embed) activation (no-ops outside a sharding context). In its
+    # own step the reduction hands the gradient back replicated: the
+    # residual stream's gradient can arrive as a plain partial sum, which
+    # DTensor cannot turn into a masked one.
+    return constrain(reduce_partial(x), (B.BATCH, None, B.EMBED))
 
 
 def lm_logits(x: torch.Tensor, p: dict[str, torch.Tensor]) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import base as B
+from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamDef
 
 #: tokens per routing group (the reference's value; capacity and the
@@ -103,10 +104,47 @@ def moe_forward(x: torch.Tensor, p: dict[str, torch.Tensor],
     combine = _dispatch_tensors(gates, k, capacity).to(x.dtype)
     dispatch = (combine > 0).to(x.dtype)
 
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
-    g = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(x.dtype))
-    u = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(x.dtype))
-    ye = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["w_down"].to(x.dtype))
-    y = torch.einsum("gtec,gecd->gtd", combine, ye)
+    weights = [p[name].to(x.dtype) for name in ("w_gate", "w_up", "w_down")]
+    if L.is_sharded(xg) and group_t > 1 and L.splits(G, B.BATCH):
+        y = _experts_on_shards(dispatch, combine, xg, weights)
+    else:
+        y = _experts(dispatch, combine, xg, *weights)
     aux = load_balance_loss(gates, k)
     return y.reshape(bsz, s, d), aux
+
+
+def _experts(dispatch: torch.Tensor, combine: torch.Tensor, xg: torch.Tensor,
+             w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """Dispatch each group's tokens to the experts' buffers, run the gated
+    experts and combine: (G,T,E,C) masks, xg (G,T,d) -> (G,T,d)."""
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)
+    g = torch.einsum("gecd,edf->gecf", xe, w_gate)
+    u = torch.einsum("gecd,edf->gecf", xe, w_up)
+    ye = torch.einsum("gecf,efd->gecd", F.silu(g) * u, w_down)
+    return torch.einsum("gtec,gecd->gtd", combine, ye)
+
+
+def _experts_on_shards(dispatch: torch.Tensor, combine: torch.Tensor, xg: torch.Tensor,
+                       weights: list[torch.Tensor]) -> torch.Tensor:
+    """:func:`_experts` on a mesh whose batch axes split the groups:
+    groups over ``data`` and experts over ``model`` (expert parallelism),
+    the tokens replicated over ``model`` and each expert's weights
+    gathered whole (FSDP's gather of ``d``). Each device then runs its
+    experts on its groups with no communication (DTensor's own lowering
+    would flatten the groups and experts, both sharded, which torch 2.11
+    refuses); the combine sums over the experts, so the output is a
+    partial sum over the mesh dims that split them. Groups that do not
+    split, and groups of one token (decode), stay with DTensor's
+    lowering, which flattens no two sharded dims there and keeps the
+    weights' FSDP shards: gathering whole experts to run one token a
+    group would repeat them on every ``data`` rank or move more weight
+    than activations."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    dispatch, combine = (L.constrain(t, (B.BATCH, None, B.EXPERT, None))
+                         for t in (dispatch, combine))
+    xg = L.constrain(xg, (B.BATCH, None, None))
+    weights = [L.constrain(w, (B.EXPERT, None, None)) for w in weights]
+    out = tuple(Shard(0) if p == Shard(0) else Partial() if p == Shard(2) else Replicate()
+                for p in combine.placements)
+    return L.on_local_shards(_experts, out, dispatch, combine, xg, *weights)

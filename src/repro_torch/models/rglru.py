@@ -141,6 +141,17 @@ def rec_block_spec(cfg: B.ModelConfig) -> dict[str, Any]:
     }
 
 
+def _gate_product(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``u @ w`` (B,S,W) for a gate. On a mesh it is reduced to the
+    width over ``model`` before the bias is added (as XLA reduces a
+    contraction over a sharded dim): both of ``w``'s dims are ``STATE``,
+    so the product is a partial sum over ``model``, and torch 2.11's
+    DTensor adds the ``model``-sharded bias to it by asking the bias for a
+    partial (S(0) -> P(sum)), which it cannot do. A no-op without a
+    sharding context."""
+    return L.constrain(u @ w.to(u.dtype), (B.BATCH, None, B.STATE))
+
+
 def _rec_in(x: torch.Tensor, p: dict[str, torch.Tensor], conv_prev: Optional[torch.Tensor]):
     """RMSNorm, the two branches, the causal conv and the gates:
     (u, r, i, gelu gate, conv state)."""
@@ -149,8 +160,8 @@ def _rec_in(x: torch.Tensor, p: dict[str, torch.Tensor], conv_prev: Optional[tor
     u = xin @ p["w_in"].to(dtype)
     gate = _gelu(xin @ p["w_gate_branch"].to(dtype))
     u, conv_new = _causal_conv(u, p["conv_w"], conv_prev)
-    r = torch.sigmoid(u @ p["w_r"].to(dtype) + p["b_r"].to(dtype))
-    i = torch.sigmoid(u @ p["w_i"].to(dtype) + p["b_i"].to(dtype))
+    r = torch.sigmoid(_gate_product(u, p["w_r"]) + p["b_r"].to(dtype))
+    i = torch.sigmoid(_gate_product(u, p["w_i"]) + p["b_i"].to(dtype))
     return u, r, i, gate, conv_new
 
 

@@ -168,6 +168,30 @@ def mlstm_chunkwise(q, k, v, logi, logf, chunk: int = 256,
     return torch.cat(hs, dim=2), (C, n, m_prev)
 
 
+def _mlstm_on_shards(q, k, v, logi, logf, chunk: int):
+    """:func:`mlstm_chunkwise` from a zero state on a mesh, over the flat
+    projections of :func:`_mlstm_gates`, with h returned flat, (B,S,H*hd).
+    Each device runs it on its own (batch, heads) shards, with no
+    communication: every (sequence, head) pair is independent, and
+    DTensor's own lowering of the chunk's einsums flattens the batch and
+    the heads, both sharded, which torch 2.11 refuses. The split into
+    heads happens on the local shards too: DTensor keeps a transposed
+    view's strides over a redistributed local result, and the gradient's
+    views then fail."""
+    from torch.distributed.tensor import Shard
+
+    def run(q, k, v, logi, logf):
+        h, state = mlstm_chunkwise(*_mlstm_heads(q, k, v, logi, logf), chunk=chunk)
+        Bsz, H, S, hd = h.shape
+        return h.transpose(1, 2).reshape(Bsz, S, H * hd), state
+
+    axes = (B.BATCH, None, L.heads_axis(logi.shape[-1]))   # features / heads over model
+    q, k, v, logi, logf = (L.constrain(t, axes) for t in (q, k, v, logi, logf))
+    pl = tuple(q.placements)
+    state = tuple(Shard(1) if p == Shard(2) else p for p in pl)   # (B,H,...)
+    return L.on_local_shards(run, (pl, (state, state, state)), q, k, v, logi, logf)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM block (up-proj, causal conv, qkv, gates, out-gate, down-proj)
 # ---------------------------------------------------------------------------
@@ -212,22 +236,39 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, prev: Optional[torch.Tensor] 
     return y, xp[:, -(K - 1):].contiguous()
 
 
-def _mlstm_project(xm: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig):
-    """Shared q/k/v/gate projections. xm: (B,S,d_inner) post-conv input."""
-    _d_inner, H, hd = _mlstm_dims(cfg)
-    Bsz, S, _ = xm.shape
+def _mlstm_gates(xm: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig):
+    """Shared q/k/v/gate projections, flat: xm (B,S,d_inner) post-conv
+    input -> q, k, v (B,S,d_inner), logi, logf (B,S,H)."""
+    _d_inner, _H, hd = _mlstm_dims(cfg)
     q = xm @ p["wq"].to(xm.dtype) / math.sqrt(hd)
     k = xm @ p["wk"].to(xm.dtype) / math.sqrt(hd)
     v = xm @ p["wv"].to(xm.dtype)
+    logi = xm @ p["w_i"].to(xm.dtype) + p["b_i"].to(xm.dtype)
+    # on a mesh the product is reduced before the non-linear gate (a no-op
+    # otherwise): left to DTensor, the partial sum is reduce-scattered over
+    # the sequence, and the backward's product then flattens (batch,
+    # sequence) with both sharded (torch 2.11 refuses it on 2 x 16 x 16)
+    logf = F.logsigmoid(L.reduce_partial(xm @ p["w_f"].to(xm.dtype)).to(torch.float32)
+                        + p["b_f"].to(torch.float32))
+    return q, k, v, logi, logf
+
+
+def _mlstm_project(xm: torch.Tensor, p: dict[str, torch.Tensor], cfg: B.ModelConfig):
+    """Shared q/k/v/gate projections per head. xm: (B,S,d_inner) post-conv input."""
+    return _mlstm_heads(*_mlstm_gates(xm, p, cfg))
+
+
+def _mlstm_heads(q, k, v, logi, logf):
+    """The flat projections per head, in fp32: q, k, v (B,H,S,hd) and
+    logi, logf (B,H,S)."""
+    Bsz, S, d_inner = q.shape
+    H = logi.shape[-1]
 
     def heads(t):
-        return L.constrain_for_heads(t, H).reshape(Bsz, S, H, hd).transpose(1, 2)
+        return (L.constrain_for_heads(t, H).reshape(Bsz, S, H, d_inner // H)
+                .transpose(1, 2).to(torch.float32))
 
-    logi = xm @ p["w_i"].to(xm.dtype) + p["b_i"].to(xm.dtype)
-    logf = F.logsigmoid((xm @ p["w_f"].to(xm.dtype)).to(torch.float32)
-                        + p["b_f"].to(torch.float32))
-    return (heads(q).to(torch.float32), heads(k).to(torch.float32),
-            heads(v).to(torch.float32), logi.transpose(1, 2).to(torch.float32),
+    return (heads(q), heads(k), heads(v), logi.transpose(1, 2).to(torch.float32),
             logf.transpose(1, 2))
 
 
@@ -252,10 +293,13 @@ def mlstm_block_forward(x: torch.Tensor, p: dict[str, Any], cfg: B.ModelConfig,
     d_inner, _H, _hd = _mlstm_dims(cfg)
     Bsz, S, _ = x.shape
     xm, z, _ = _mlstm_in(x, p)
-    q, k, v, logi, logf = _mlstm_project(xm, p, cfg)
     c = min(chunk, S)
     if S % c != 0:
         c = S  # tiny smoke shapes: a single chunk
+    if L.is_sharded(xm):
+        h, _ = _mlstm_on_shards(*_mlstm_gates(xm, p, cfg), chunk=c)
+        return _mlstm_out(x, h, z, p)
+    q, k, v, logi, logf = _mlstm_project(xm, p, cfg)
     h, _ = mlstm_chunkwise(q, k, v, logi, logf, chunk=c)
     return _mlstm_out(x, h.transpose(1, 2).reshape(Bsz, S, d_inner), z, p)
 
@@ -419,6 +463,12 @@ def slstm_block_decode(x: torch.Tensor, p: dict[str, Any], state: dict[str, torc
                        cfg: B.ModelConfig) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     Bsz, _, d = x.shape
     gx = slstm_gate_x(L.rms_norm(x, p["norm"]), p, cfg)
+    # on a mesh the inputs are placed as the state is (the batch over
+    # ``data``, the reference's hint): the cached state's features are
+    # over ``model``, so each gate's recurrent part is a partial sum there,
+    # and torch 2.11's DTensor would add it to a partial input by asking
+    # the state's batch shards for a partial (S(0) -> P(sum))
+    gx = {name: L.constrain(g, (B.BATCH, None, None, None)) for name, g in gx.items()}
     new = _slstm_cell(state, {name: g[:, 0] for name, g in gx.items()}, p)
     return _slstm_out(x, new["h"].reshape(Bsz, 1, d), p), new
 
@@ -520,10 +570,14 @@ class XLSTMModel:
             mp, sp = bp["mlstm"], bp["slstm"]
             # chunkwise mLSTM with its final state
             xm, z, conv_state = _mlstm_in(x, mp)
-            q, k, v, logi, logf = _mlstm_project(xm, mp, cfg)
             c = 256 if S % 256 == 0 else S
-            h, (C, n, m) = mlstm_chunkwise(q, k, v, logi, logf, chunk=c)
-            x = _mlstm_out(x, h.transpose(1, 2).reshape(Bsz, S, d_inner), z, mp)
+            if L.is_sharded(xm):
+                h, (C, n, m) = _mlstm_on_shards(*_mlstm_gates(xm, mp, cfg), chunk=c)
+            else:
+                q, k, v, logi, logf = _mlstm_project(xm, mp, cfg)
+                h, (C, n, m) = mlstm_chunkwise(q, k, v, logi, logf, chunk=c)
+                h = h.transpose(1, 2).reshape(Bsz, S, d_inner)
+            x = _mlstm_out(x, h, z, mp)
             mlstm_state = {"C": C, "n": n, "m": m, "conv": conv_state}
             # sLSTM recurrence with its final state (input projections hoisted)
             xin = L.rms_norm(x, sp["norm"])

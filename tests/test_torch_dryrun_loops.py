@@ -6,7 +6,7 @@ equals the same step with every loop run in full: FLOPs, bytes and the
 peak of live meta storage (a prefill that cuts the sLSTM scan, and a train
 step, whose backward runs each step's too), at one chip and on a mesh over
 a fake process group. Where the peak does not grow linearly with the
-steps (DTensor's temporaries on a (2, 8) mesh), it is reported as unknown,
+steps (DTensor's temporaries on a (2, 4) mesh), it is reported as unknown,
 never extrapolated; and the totals add up leaf by leaf.
 """
 import pytest
@@ -50,11 +50,11 @@ def test_a_cut_time_loop_counts_as_the_full_loop(kind, seq):
     assert "peak_unknown" not in cut
 
 
-@pytest.mark.parametrize("shape,batch,peak_known", [((2, 4), 8, True), ((2, 8), 16, False)])
+@pytest.mark.parametrize("shape,batch,peak_known", [((4, 2), 8, True), ((2, 4), 16, False)])
 def test_a_cut_time_loop_on_a_mesh_counts_as_the_full_loop(shape, batch, peak_known):
     """On a mesh the per-device FLOPs and bytes of the cut loop equal the
     full loop's. Its peak does too where it grows linearly with the steps
-    ((2, 4)); on (2, 8) DTensor's temporaries make the peak wander from
+    ((4, 2)); on (2, 4) DTensor's temporaries make the peak wander from
     step to step, and the count reports it as unknown, with the reason,
     instead of a number one step times n would make up."""
     plan = ShapePlan("x", "prefill", 64, batch, "paper")

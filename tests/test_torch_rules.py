@@ -1,6 +1,7 @@
 """Rule guards for the PyTorch port.
 
-* The port (``src/repro_torch``) and ``chip_smoke.py`` import neither
+* The port (``src/repro_torch``), ``chip_smoke.py`` and the port's
+  examples (``examples/torch``) import neither
   ``jax`` nor anything of the JAX package ``repro``: checked by scanning
   the sources, and by importing the port's entry point in a fresh
   interpreter whose import system refuses both.
@@ -29,7 +30,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$|,)", re.MULTILI
 
 
 def _port_sources() -> list[Path]:
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 
 def test_port_sources_never_import_jax_or_the_reference():
