@@ -684,9 +684,15 @@ class _ItemAssembler:
     MemoryMeter accounting matches the single-buffer reality: one
     ``record_alloc`` for the assembled buffer (plus the transient
     pre-header segments), one ``record_free`` when the item is consumed.
+
+    With a tracer active, each multi-chunk item is one ``wire.reassemble``
+    span, from its first segment to :meth:`complete` (before the decode):
+    args ``bytes`` (its wire length), ``chunks`` (counted by the receiver
+    in :attr:`chunks`) and ``alloc_s`` (the buffer's allocation alone).
     """
 
-    __slots__ = ("_parts", "_parts_n", "_buf", "_filled", "_total")
+    __slots__ = ("_parts", "_parts_n", "_buf", "_filled", "_total",
+                 "_tracer", "_t0_ns", "_alloc_ns", "chunks")
 
     def __init__(self) -> None:
         self._parts: list = []
@@ -694,6 +700,10 @@ class _ItemAssembler:
         self._buf: Optional[bytearray] = None
         self._filled = 0
         self._total: Optional[int] = None
+        self._tracer: Optional[obs_trace.Tracer] = None   # set while a span is open
+        self._t0_ns = 0
+        self._alloc_ns = 0
+        self.chunks = 0
 
     @property
     def nbytes(self) -> int:
@@ -719,6 +729,12 @@ class _ItemAssembler:
             mem.record_copy(n)
             self._filled += n
             return
+        if more_coming and not self._parts_n:
+            # the first segment of an item that spans several chunks
+            tr = obs_trace.ACTIVE
+            if tr is not None:
+                self._tracer = tr
+                self._t0_ns = time.perf_counter_ns()
         self._parts.append(seg)
         self._parts_n += n
         mem.record_alloc(n)
@@ -745,7 +761,12 @@ class _ItemAssembler:
             # in the buffered segments (no copy needed at all)
             return
         self._total = total
-        self._buf = bytearray(total)
+        if self._tracer is None:
+            self._buf = bytearray(total)
+        else:
+            t0 = time.perf_counter_ns()
+            self._buf = bytearray(total)
+            self._alloc_ns = time.perf_counter_ns() - t0
         mem.record_alloc(total)
         for p in self._parts:
             self._buf[self._filled:self._filled + len(p)] = p
@@ -779,6 +800,12 @@ class _ItemAssembler:
             live = self._parts_n
         else:
             out, live = b"", 0
+        if self._tracer is not None:
+            self._tracer.span_since(self._t0_ns, "wire.reassemble", "wire", bytes=live,
+                                    chunks=self.chunks, alloc_s=self._alloc_ns / 1e9)
+            self._tracer = None
+            self._alloc_ns = 0
+        self.chunks = 0
         self._parts = []
         self._parts_n = 0
         self._buf = None
@@ -849,10 +876,13 @@ class ContainerReceiver:
         self.done = False
 
     def on_chunk(self, chunk: Chunk) -> None:
+        asm = self._asm
         for seg in chunk.segments:
-            self._asm.add(seg, more_coming=not chunk.item_end)
+            asm.add(seg, more_coming=not chunk.item_end)
+        if asm._tracer is not None:
+            asm.chunks += 1
         if chunk.item_end:
-            buf, live = self._asm.complete()
+            buf, live = asm.complete()
             name, value, _ = self._decode(buf)
             if self._consume is not None:
                 self._consume(name, value)
@@ -1115,15 +1145,21 @@ class ObjectStreamer:
         self.driver = driver
         self.chunk_size = chunk_size
 
-    def send_blob(self, blob: bytes) -> bytes:
+    def send_blob(self, blob: bytes, kind: Optional[str] = None) -> bytes:
         """Chunk out an already-encoded blob (the caller registered its
-        allocation; the streamer frees it once fully sent)."""
+        allocation; the streamer frees it once fully sent). With a
+        tracer active the transfer is one ``wire.stream`` span (args
+        ``kind``, the message kind, ``chunks`` and ``bytes``)."""
+        tr = obs_trace.ACTIVE
+        t0 = time.perf_counter_ns() if tr is not None else 0
         sid = uuid.uuid4().bytes
         seq = 0
         for part, last in _chunk_iter(blob, self.chunk_size):
             self.driver.send(Chunk(sid, seq, part, FLAG_EOF if last else 0))
             seq += 1
         mem.record_free(len(blob))
+        if tr is not None:
+            tr.span_since(t0, "wire.stream", "wire", kind=kind, chunks=seq, bytes=len(blob))
         return sid
 
     def send_container(self, sd: Mapping[str, Any]) -> bytes:
@@ -1153,7 +1189,8 @@ class ContainerStreamer:
         self.chunk_size = chunk_size
         self.prefetch = prefetch
 
-    def send_items(self, items: Iterable[tuple[str, ser.ViewsLike]], total: int) -> bytes:
+    def send_items(self, items: Iterable[tuple[str, ser.ViewsLike]], total: int,
+                   kind: Optional[str] = None) -> bytes:
         """Stream ``total`` pre-encoded items, framing item boundaries.
 
         The item source is any (name, item) iterator — the plain
@@ -1162,8 +1199,13 @@ class ContainerStreamer:
         (~1 + ``prefetch`` items with encode-ahead on). Each item may be
         contiguous bytes or a scatter-gather view list
         (:data:`repro_torch.core.serialization.Views`); views flow through to
-        the driver unjoined.
+        the driver unjoined. With a tracer active the transfer (the
+        items' lazy encode included) is one ``wire.stream`` span: args
+        ``kind`` (the message kind), ``chunks`` and ``bytes``.
         """
+        tr = obs_trace.ACTIVE
+        t0_ns = time.perf_counter_ns() if tr is not None else 0
+        nbytes = 0
         adaptive = (self.prefetch
                     if isinstance(self.prefetch, AdaptiveEncodeAhead) else None)
         depth = adaptive.depth if adaptive is not None else self.prefetch
@@ -1179,6 +1221,8 @@ class ContainerStreamer:
         seq = 0
         for i, (_name, item) in enumerate(items):
             last_item = i == total - 1
+            if tr is not None:
+                nbytes += ser.views_nbytes(item)
             for part, item_last in _chunk_iter_views(item, self.chunk_size):
                 flags = 0
                 if item_last:
@@ -1189,6 +1233,8 @@ class ContainerStreamer:
                 seq += 1
         if adaptive is not None:
             adaptive.observe(stall[0], time.perf_counter() - t0)
+        if tr is not None:
+            tr.span_since(t0_ns, "wire.stream", "wire", kind=kind, chunks=seq, bytes=nbytes)
         return sid
 
     def send_container(self, sd: Mapping[str, Any]) -> bytes:

@@ -14,6 +14,8 @@ import time
 from collections.abc import Callable, Mapping, Sequence
 from typing import Any, Optional
 
+import torch
+
 from repro_torch.core.messages import Message, MessageKind
 from repro_torch.obs import trace as obs_trace
 
@@ -29,6 +31,14 @@ def make_task(rnd: int, global_weights: Mapping[str, Any]) -> Message:
         dict(global_weights),
         headers={"round": rnd, "task_name": "train"},
     )
+
+
+def _sync_device(weights: Mapping[str, Any]) -> None:
+    """Wait for the CUDA device the weights live on, if any, so a round's
+    ``wall_s`` counts the fold still queued there."""
+    first = next(iter(weights.values()), None)
+    if isinstance(first, torch.Tensor) and first.is_cuda:
+        torch.cuda.synchronize(first.device)
 
 
 class ClientProxy:
@@ -125,6 +135,7 @@ class ScatterAndGather:
                             self.aggregator.accept(result)
                     results.append(result)
                 global_weights = self.aggregator.finish()
+                _sync_device(global_weights)
             self.round_log.append({
                 "round": rnd,
                 "clients": len(results),

@@ -373,32 +373,41 @@ def _train_executor(
     history: Optional[list[float]] = None,
 ) -> TrainExecutor:
     def train_fn(flat_params, rnd):
+        # client.train holds train.setup, then train.batch / .forward /
+        # .backward / .optimizer for each step (arg ``step``), then
+        # train.readback, where the host waits for the card
         with obs_trace.span("client.train", "fl", client=name, round=rnd):
-            # decoded downlink tensors become this client's parameters and
-            # are updated in place; numpy inputs are copied first
-            flat = {
-                k: (v if isinstance(v, torch.Tensor) else torch.tensor(v))
-                .to(device=device, dtype=torch.float32).requires_grad_(True)
-                for k, v in flat_params.items()
-            }
-            p = unflatten_state_dict(flat)
-            leaves = tree_leaves(p)
-            opt = adamw_init(p)
+            with obs_trace.span("train.setup", "fl"):
+                # decoded downlink tensors become this client's parameters
+                # and are updated in place; numpy inputs are copied first
+                flat = {
+                    k: (v if isinstance(v, torch.Tensor) else torch.tensor(v))
+                    .to(device=device, dtype=torch.float32).requires_grad_(True)
+                    for k, v in flat_params.items()
+                }
+                p = unflatten_state_dict(flat)
+                leaves = tree_leaves(p)
+                opt = adamw_init(p)
             loss = None
             # round-keyed sampling: the update is a pure function of
             # (params, rnd), as in the reference
             for step in range(spec["local_steps"]):
-                batch = {
-                    k: torch.as_tensor(v, device=device).long()
-                    for k, v in data.sample_at(
-                        spec["batch"], rnd * spec["local_steps"] + step
-                    ).items()
-                }
-                loss, _ = model.loss(p, batch)
-                grads = torch.autograd.grad(loss, leaves)
-                _, opt, _ = adamw_update(p, list(grads), opt, spec["lr"])
+                with obs_trace.span("train.batch", "fl", step=step):
+                    batch = {
+                        k: torch.as_tensor(v, device=device).long()
+                        for k, v in data.sample_at(
+                            spec["batch"], rnd * spec["local_steps"] + step
+                        ).items()
+                    }
+                with obs_trace.span("train.forward", "fl", step=step):
+                    loss, _ = model.loss(p, batch)
+                with obs_trace.span("train.backward", "fl", step=step):
+                    grads = torch.autograd.grad(loss, leaves)
+                with obs_trace.span("train.optimizer", "fl", step=step):
+                    _, opt, _ = adamw_update(p, list(grads), opt, spec["lr"])
                 del grads
-            loss_f = float(loss.detach())
+            with obs_trace.span("train.readback", "fl"):
+                loss_f = float(loss.detach())
         if history is not None:
             history.append(loss_f)
         out = {k: t.detach() for k, t in flatten_state_dict(p).items()}
@@ -473,9 +482,11 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
 
     ``weights`` replaces the seeded init: a flat dict of tensors, or of
     numpy arrays (the reference's ``initial_weights``), checked against
-    the model's names and shapes. With tracing on (``"trace"`` truthy) on
-    CUDA, spans synchronise the device at their edges so their wall
-    times include the kernels they launched.
+    the model's names and shapes. With tracing on (``"trace"`` truthy)
+    the simulator records spans in host time, without synchronising
+    the device, so the trace shows the run as it runs untraced; the
+    device's time comes from a profiler laid beside it through the
+    trace's ``otherData["clock"]`` (:func:`repro_torch.obs.trace.profiler_ns`).
     """
     spec = normalize_spec(spec)
     device = resolve_device(device)
@@ -498,9 +509,7 @@ def build_job(spec: dict[str, Any], *, device: Any = None,
         init = {name: weights[name].to(device) for name in sorted(weights)}
     else:
         init = from_reference_state(weights, device, expect)
-    tracer = None
-    if spec.get("trace"):
-        tracer = Tracer(sync=torch.cuda.synchronize if device.type == "cuda" else None)
+    tracer = Tracer() if spec.get("trace") else None
     agg = build_aggregator(aggregator_spec(spec), device=device)
     runtime_kwargs = _build_runtime(spec, agg, [ex.name for ex in executors], device)
     network = runtime_kwargs.get("network")
@@ -542,7 +551,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     """``python -m repro_torch.fl.job SPEC.json [--trace OUT] [--device cpu]``
     — run a declarative job on the card (or on ``--device``) and print a
     JSON summary (weights omitted). ``--trace`` turns on the span tracer
-    and writes the run's Chrome trace-event file."""
+    and writes the run's Chrome trace-event file: host time, with no
+    device syncs; a profiler's device trace lines up with it through the
+    file's ``otherData["clock"]`` pairs."""
     import argparse
 
     ap = argparse.ArgumentParser(

@@ -189,6 +189,8 @@ class _Wire:
         if tr is None:
             return self._transmit(message, pipeline, lock, sink, count_only, record_stats)
         h = message.headers
+        meter = MemoryMeter.current()
+        copied0, alloc0 = (meter.copied, meter.total_allocated) if meter else (0, 0)
         with tr.span("wire.transmit", "wire", kind=message.kind.value,
                      client=str(h.get("client", "")),
                      round=h.get("round", h.get("model_version")),
@@ -196,6 +198,11 @@ class _Wire:
             out, nbytes = self._transmit(message, pipeline, lock, sink,
                                          count_only, record_stats)
             sp.args["wire_bytes"] = nbytes
+            # the meter's counters over the transfer (concurrent transfers
+            # of the async runtime share one meter and count in each other's)
+            if meter is not None:
+                sp.args["copied_bytes"] = meter.copied - copied0
+                sp.args["allocated_bytes"] = meter.total_allocated - alloc0
             return out, nbytes
 
     def _transmit(
@@ -272,10 +279,11 @@ class _Wire:
                     driver.connect(recv.on_chunk)
                     if regular:
                         sm.ObjectStreamer(driver, cfg.chunk_size).send_blob(
-                            pipeline.encode_blob(msg, ctx))
+                            pipeline.encode_blob(msg, ctx), kind=message.kind.value)
                     else:
                         sm.ContainerStreamer(driver, cfg.chunk_size).send_items(
-                            pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg))
+                            pipeline.iter_encode_views(msg, ctx), pipeline.n_items(msg),
+                            kind=message.kind.value)
                     driver.flush()  # no-op unless a spool driver is underneath
                 driver.close()
             finally:

@@ -32,10 +32,19 @@ atomic under the GIL; the thread-id map takes a lock on first sight of
 a new thread), so worker threads trace concurrently without contention.
 Nothing here reads the wall clock into *simulated* event times — tracing
 cannot perturb a deterministic timeline.
+
+Spans are host time. To lay them beside a device trace, the tracer reads
+``perf_counter_ns`` (its spans' clock) and ``time.time_ns`` (the clock
+``torch.profiler`` stamps its events with, Unix-epoch nanoseconds) side
+by side at its epoch and again at export, and writes both pairs to
+``otherData["clock"]``: :func:`profiler_ns` maps a span's ``ts`` onto
+the profiler's clock. While a tracer is active, every full (generation
+2) collection of Python's cyclic collector is a ``host.gc`` span.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import threading
 import time
@@ -57,14 +66,36 @@ def active() -> Optional["Tracer"]:
 
 @contextlib.contextmanager
 def activate(tracer: "Tracer") -> Iterator["Tracer"]:
-    """Install ``tracer`` as the process-wide active tracer."""
+    """Install ``tracer`` as the process-wide active tracer, with the
+    cyclic collector's callback that records ``host.gc`` spans (removed
+    again on exit by the outermost activation)."""
     global ACTIVE
     prev = ACTIVE
     ACTIVE = tracer
+    hooked = _gc_span not in gc.callbacks
+    if hooked:
+        gc.callbacks.append(_gc_span)
     try:
         yield tracer
     finally:
         ACTIVE = prev
+        if hooked:
+            gc.callbacks.remove(_gc_span)
+
+
+def _gc_span(phase: str, info: dict[str, int]) -> None:
+    """``gc.callbacks`` hook: a ``host.gc`` span for each full collection.
+    The young generations' collections, every few hundred allocations,
+    get none."""
+    tr = ACTIVE
+    if tr is None or info["generation"] != 2:
+        return
+    if phase == "start":
+        tr._gc_t0 = time.perf_counter_ns()
+    elif tr._gc_t0:
+        tr.span_since(tr._gc_t0, "host.gc", "gc", collected=info["collected"],
+                      uncollectable=info["uncollectable"])
+        tr._gc_t0 = 0
 
 
 _NOOP = contextlib.nullcontext()
@@ -107,19 +138,9 @@ class _Span:
         tr = self._tracer
         if tr.sync is not None:
             tr.sync()
-        t1 = time.perf_counter_ns()
         if self._sim_t0 is not None:
             self.args["sim_t"] = round(self._sim_t0, 9)
-        tr._emit({
-            "ph": "X",
-            "name": self.name,
-            "cat": self.cat or "span",
-            "pid": PID_WALL,
-            "tid": tr._wall_tid(),
-            "ts": (self._t0 - tr._epoch_ns) / 1000.0,
-            "dur": (t1 - self._t0) / 1000.0,
-            "args": self.args,
-        })
+        tr._emit_span(self.name, self.cat, self._t0, time.perf_counter_ns(), self.args)
 
 
 class Tracer:
@@ -146,15 +167,32 @@ class Tracer:
         self.sim_clock = sim_clock
         self.sync = sync
         self._events: deque = deque(maxlen=capacity)
-        self._epoch_ns = time.perf_counter_ns()
-        self._lock = threading.Lock()
+        self._epoch = clock_pair()
+        self._epoch_ns = self._epoch["perf_ns"]
+        # re-entrant: a collection's callback may emit from inside a locked
+        # section on the same thread
+        self._lock = threading.RLock()
         self._tids: dict[tuple[int, str], int] = {}
         self._total = 0
+        self._gc_t0 = 0       # a full collection's start, while it runs
 
     # -- bookkeeping --------------------------------------------------------
     def _emit(self, event: dict[str, Any]) -> None:
         self._total += 1          # benign race: a statistic, not an index
         self._events.append(event)
+
+    def _emit_span(self, name: str, cat: str, t0_ns: int, t1_ns: int,
+                   args: dict[str, Any]) -> None:
+        self._emit({
+            "ph": "X",
+            "name": name,
+            "cat": cat or "span",
+            "pid": PID_WALL,
+            "tid": self._wall_tid(),
+            "ts": (t0_ns - self._epoch_ns) / 1000.0,
+            "dur": (t1_ns - t0_ns) / 1000.0,
+            "args": args,
+        })
 
     def _tid(self, pid: int, label: str) -> int:
         key = (pid, label)
@@ -183,6 +221,14 @@ class Tracer:
         """A nested wall-clock span (context manager). Spans opened on
         one thread nest by containment on that thread's track."""
         return _Span(self, name, cat, args)
+
+    def span_since(self, t0_ns: int, name: str, cat: str = "", **args: Any) -> None:
+        """A span that began at ``t0_ns`` (``time.perf_counter_ns()``) and
+        ends now, on this thread's track: for work whose start and end
+        lie in different calls (an item reassembled over many chunks, a
+        collection seen by its start and stop callbacks). No ``sync``
+        at its edges."""
+        self._emit_span(name, cat, t0_ns, time.perf_counter_ns(), args)
 
     def instant(self, name: str, cat: str = "", **args: Any) -> None:
         self._emit({
@@ -246,6 +292,8 @@ class Tracer:
                 "total_events": self._total,
                 "dropped_events": self.dropped,
                 "capacity": self.capacity,
+                "clock": {"epoch": self._epoch, "export": clock_pair(),
+                          "profiler_clock": "time.time_ns"},
             },
         }
 
@@ -256,6 +304,32 @@ class Tracer:
             json.dump(obj, fh)
         return {"path": path, "events": len(obj["traceEvents"]),
                 "dropped": self.dropped}
+
+
+# ---------------------------------------------------------------------------
+# One clock with the profiler
+# ---------------------------------------------------------------------------
+
+def clock_pair() -> dict[str, int]:
+    """``perf_counter_ns`` and ``time_ns`` read side by side: the span
+    clock taken on both sides of the profiler's clock, and their mean."""
+    a = time.perf_counter_ns()
+    unix = time.time_ns()
+    b = time.perf_counter_ns()
+    return {"perf_ns": (a + b) // 2, "unix_ns": unix}
+
+
+def profiler_ns(trace: dict[str, Any], ts_us: float) -> int:
+    """A span clock ``ts`` (microseconds since the tracer's epoch) on the
+    profiler's clock (Unix-epoch nanoseconds), interpolated between the
+    epoch and export pairs of ``trace["otherData"]["clock"]``, so any
+    drift between the two clocks over the trace is taken out."""
+    clock = trace["otherData"]["clock"]
+    e, x = clock["epoch"], clock["export"]
+    perf = e["perf_ns"] + ts_us * 1000.0
+    span = x["perf_ns"] - e["perf_ns"]
+    rate = (x["unix_ns"] - e["unix_ns"]) / span if span > 0 else 1.0
+    return int(round(e["unix_ns"] + (perf - e["perf_ns"]) * rate))
 
 
 # ---------------------------------------------------------------------------

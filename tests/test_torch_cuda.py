@@ -29,7 +29,8 @@ within the SVDs' bound (``repro_torch.testing.lora_fixed_bounds``).
 The centralized trainer: two smoke-width ``train_loop`` steps of each
 family on the card give the CPU's losses and weights within the CPU
 tests' bounds, and a step at seq 128 (through the flash kernel) raises.
-Imports torch and the port only, so it runs on the card machine, which
+A round's ``wall_s`` in the controller's ``round_log`` covers the fold
+its aggregator left queued on the card. Imports torch and the port only, so it runs on the card machine, which
 has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -747,3 +748,43 @@ def test_cuda_tensors_launch_or_raise_while_meta_takes_the_plain_version(cuda):
         slstm_scan(torch.zeros((1, 8, 4, 512), device=cuda),
                    torch.zeros((4, 1, 512, 512), device=cuda), num_heads=1, chunk=8)
     assert ops.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_round_wall_time_counts_the_fold_queued_on_the_card(cuda):
+    """``ScatterAndGather`` waits for the card the new global weights live
+    on before it reads the round's clock: a fold that returns at once but
+    leaves a long kernel queued is in ``wall_s``."""
+    import time
+
+    from repro_torch.core.messages import Message, MessageKind
+    from repro_torch.fl.controller import ClientProxy, ScatterAndGather
+
+    class Client(ClientProxy):
+        name = "site-0"
+
+        def submit_task(self, task, result_sink=None):
+            return Message(MessageKind.TASK_RESULT, {}, headers={})
+
+    class QueuedFold:
+        def accept(self, result):
+            pass
+
+        def finish(self):
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            self.start.record()
+            torch.cuda._sleep(500_000_000)      # a few hundred ms of cycles
+            w = torch.ones(4, device=cuda)
+            self.end.record()
+            self.host_s = time.perf_counter() - t0
+            return {"w": w}
+
+    torch.cuda.synchronize()
+    fold = QueuedFold()
+    controller = ScatterAndGather([Client()], fold, num_rounds=1)
+    controller.run({"w": torch.zeros(4, device=cuda)})
+    kernel_s = fold.start.elapsed_time(fold.end) / 1e3
+    assert kernel_s > 0.05 and fold.host_s < kernel_s / 5, (kernel_s, fold.host_s)
+    assert controller.round_log[0]["wall_s"] >= kernel_s
