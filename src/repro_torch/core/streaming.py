@@ -50,6 +50,9 @@ import uuid
 from collections.abc import Callable, Iterable, Iterator, Mapping
 from typing import Any, Optional, Union
 
+import numpy as np
+import torch
+
 from repro_torch.core import serialization as ser
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -673,13 +676,22 @@ class _ItemAssembler:
     The first segments are buffered (zero-copy references) only until
     the item's own header — u32 header length + JSON header — can be
     parsed; :func:`repro_torch.core.serialization.declared_item_nbytes` then
-    gives the item's total wire length and a ``bytearray`` of exactly
-    that size is allocated once. Every further segment is copied
-    straight into it at its offset, so a multi-chunk item costs one
-    buffer and one copy instead of the old parts-list + ``b"".join``
-    double copy. Single-segment items (item smaller than a chunk — the
-    common case) are handed to the decoder as the received view, with
-    no copy and no allocation at all.
+    gives the item's total wire length and a buffer of exactly that size
+    is allocated once. Every further segment is copied straight into it
+    at its offset, so a multi-chunk item costs one buffer and one copy
+    instead of the old parts-list + ``b"".join`` double copy.
+    Single-segment items (item smaller than a chunk — the common case)
+    are handed to the decoder as the received view, with no copy and no
+    allocation at all.
+
+    The buffer is an uninitialised ``torch.empty`` byte tensor, filled
+    only by the copies (:meth:`complete` refuses an item that is short
+    of its declared length). With ``pin`` it comes page-locked from
+    torch's caching host allocator: after the first item of a size the
+    block is a cache hit (no fault, no zero-fill), and a decode's copy of
+    the values viewed in it to the card is a direct DMA. A block returns
+    to the cache only once the last view decoded from it is freed, so a
+    decoded value that outlives its item keeps its bytes.
 
     MemoryMeter accounting matches the single-buffer reality: one
     ``record_alloc`` for the assembled buffer (plus the transient
@@ -688,16 +700,18 @@ class _ItemAssembler:
     With a tracer active, each multi-chunk item is one ``wire.reassemble``
     span, from its first segment to :meth:`complete` (before the decode):
     args ``bytes`` (its wire length), ``chunks`` (counted by the receiver
-    in :attr:`chunks`) and ``alloc_s`` (the buffer's allocation alone).
+    in :attr:`chunks`), ``alloc_s`` (the buffer's allocation alone) and
+    ``pinned`` (whether the item was assembled in a page-locked buffer).
     """
 
-    __slots__ = ("_parts", "_parts_n", "_buf", "_filled", "_total",
+    __slots__ = ("_pin", "_parts", "_parts_n", "_buf", "_filled", "_total",
                  "_tracer", "_t0_ns", "_alloc_ns", "chunks")
 
-    def __init__(self) -> None:
+    def __init__(self, pin: bool = False) -> None:
+        self._pin = pin
         self._parts: list = []
         self._parts_n = 0
-        self._buf: Optional[bytearray] = None
+        self._buf: Optional[np.ndarray] = None   # uint8 view of the buffer tensor
         self._filled = 0
         self._total: Optional[int] = None
         self._tracer: Optional[obs_trace.Tracer] = None   # set while a span is open
@@ -725,7 +739,7 @@ class _ItemAssembler:
                     f"item overflows its declared wire length {self._total} "
                     f"({self._filled + n} bytes received)"
                 )
-            self._buf[self._filled:self._filled + n] = seg
+            self._buf[self._filled:self._filled + n] = np.frombuffer(seg, np.uint8)
             mem.record_copy(n)
             self._filled += n
             return
@@ -761,15 +775,12 @@ class _ItemAssembler:
             # in the buffered segments (no copy needed at all)
             return
         self._total = total
-        if self._tracer is None:
-            self._buf = bytearray(total)
-        else:
-            t0 = time.perf_counter_ns()
-            self._buf = bytearray(total)
-            self._alloc_ns = time.perf_counter_ns() - t0
+        t0 = time.perf_counter_ns()
+        self._buf = torch.empty(total, dtype=torch.uint8, pin_memory=self._pin).numpy()
+        self._alloc_ns = time.perf_counter_ns() - t0
         mem.record_alloc(total)
         for p in self._parts:
-            self._buf[self._filled:self._filled + len(p)] = p
+            self._buf[self._filled:self._filled + len(p)] = np.frombuffer(p, np.uint8)
             mem.record_copy(len(p))
             self._filled += len(p)
         mem.record_free(self._parts_n)
@@ -802,9 +813,10 @@ class _ItemAssembler:
             out, live = b"", 0
         if self._tracer is not None:
             self._tracer.span_since(self._t0_ns, "wire.reassemble", "wire", bytes=live,
-                                    chunks=self.chunks, alloc_s=self._alloc_ns / 1e9)
+                                    chunks=self.chunks, alloc_s=self._alloc_ns / 1e9,
+                                    pinned=self._pin and self._buf is not None)
             self._tracer = None
-            self._alloc_ns = 0
+        self._alloc_ns = 0
         self.chunks = 0
         self._parts = []
         self._parts_n = 0
@@ -849,7 +861,10 @@ class BlobReceiver:
 class ContainerReceiver:
     """Container-streaming receiver: holds at most one item's bytes,
     reassembled into a single preallocated buffer (see
-    :class:`_ItemAssembler`).
+    :class:`_ItemAssembler`). ``device`` is where the decoder lands its
+    tensors (``WireDecoder.ctx.device``): on a CUDA device the buffers
+    are page-locked, so the decode's copies to the card read them
+    directly; without one they are ordinary host memory.
 
     ``consume`` receives each (name, value) as soon as its item completes
     — enabling *incremental* downstream processing (e.g. streaming FedAvg)
@@ -868,8 +883,10 @@ class ContainerReceiver:
         self,
         consume: Optional[Callable[[str, Any], None]] = None,
         decode_item: Optional[Callable[[bytes], tuple[str, Any, int]]] = None,
+        device: Any = None,
     ) -> None:
-        self._asm = _ItemAssembler()
+        self._asm = _ItemAssembler(
+            pin=device is not None and torch.device(device).type == "cuda")
         self._consume = consume
         self._decode = decode_item or ser.deserialize_item
         self.result: dict[str, Any] = {}
@@ -1379,7 +1396,8 @@ class ObjectRetriever:
         decoder = pipeline.decoder(sink=sink)
         if mode == "container":
             receiver: Any = ContainerReceiver(consume=decoder.on_item,
-                                              decode_item=decoder.decode_item)
+                                              decode_item=decoder.decode_item,
+                                              device=decoder.ctx.device)
             driver.connect(receiver.on_chunk)
             ContainerStreamer(driver, self.chunk_size).send_items(
                 pipeline.iter_encode_views(enc, ctx), pipeline.n_items(enc)

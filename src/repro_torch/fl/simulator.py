@@ -250,7 +250,8 @@ class _Wire:
             # as in the reference; FileStreamer moves real files
             decoder = pipeline.decoder(sink=sink)
             recv = sm.ContainerReceiver(consume=decoder.on_item,
-                                        decode_item=decoder.decode_item)
+                                        decode_item=decoder.decode_item,
+                                        device=decoder.ctx.device)
         hold = lock if (lock is not None and pipeline.stateful) else contextlib.nullcontext()
         with hold:
             msg, ctx = pipeline.begin_encode(message)

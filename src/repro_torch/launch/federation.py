@@ -696,7 +696,8 @@ class FederationServer:
                             decoder.on_item(iname, value)
 
                         recv = sm.ContainerReceiver(consume=consume,
-                                                    decode_item=decoder.decode_item)
+                                                    decode_item=decoder.decode_item,
+                                                    device=decoder.ctx.device)
                         nbytes = conn.recv_stream(recv.on_chunk)
                         result = decoder.finish(MessageKind.TASK_RESULT)
                     finally:
@@ -1063,7 +1064,8 @@ class FederationClient:
     def _recv_task(self, conn: sm.Connection) -> Message:
         decoder = self.pipelines["task_data"].decoder()
         recv = sm.ContainerReceiver(consume=decoder.on_item,
-                                    decode_item=decoder.decode_item)
+                                    decode_item=decoder.decode_item,
+                                    device=decoder.ctx.device)
         conn.recv_stream(recv.on_chunk)
         return decoder.finish(MessageKind.TASK_DATA)
 
@@ -1095,7 +1097,8 @@ def _wire_roundtrip(pipeline: WirePipeline, msg: Message, kind: MessageKind,
     the exact arithmetic path of a live transfer, minus the socket."""
     decoder = pipeline.decoder(sink=sink)
     recv = sm.ContainerReceiver(consume=decoder.on_item,
-                                decode_item=decoder.decode_item)
+                                decode_item=decoder.decode_item,
+                                device=decoder.ctx.device)
     driver = sm.LoopbackDriver()
     driver.connect(recv.on_chunk)
     msg, ctx = pipeline.begin_encode(msg)
