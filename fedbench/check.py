@@ -43,7 +43,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from fedbench.reference import codec, decoder, local
+from fedbench import reference
+from fedbench.reference import codec, local
 
 SEGMENT = 4096
 EXTRA_SEGMENTS = 14
@@ -72,7 +73,7 @@ def wire_formats(traffic: dict[str, Any]) -> tuple[str, str]:
 def segments(cfg: dict[str, Any], seed: int) -> dict[str, list[int]]:
     """Each leaf's sampled segment indices, drawn from the seed."""
     out = {}
-    for i, (name, (shape, _)) in enumerate(decoder.param_specs(cfg).items()):
+    for i, (name, (shape, _)) in enumerate(reference.load(cfg).param_specs(cfg).items()):
         nseg = math.ceil(math.prod(shape) / SEGMENT)
         rng = np.random.default_rng((seed, i))
         pick = rng.choice(nseg, size=min(EXTRA_SEGMENTS, nseg), replace=False)
@@ -131,7 +132,7 @@ def reference_round(cfg: dict[str, Any], traffic: dict[str, Any], seed: int,
     tr = traffic["spec"]
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products, as stated
     torch.backends.cudnn.allow_tf32 = False
-    w0 = decoder.make_weights(cfg, seed, device)
+    w0 = reference.load(cfg).make_weights(cfg, seed, device)
     start = {n: codec.roundtrip(w.reshape(-1), fmt_down).view(w.shape) for n, w in w0.items()}
     del w0
     out: dict[str, Any] = {"start": {n: sample_values(t, segs[n]) for n, t in start.items()},

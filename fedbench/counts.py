@@ -1,26 +1,23 @@
 """The yardstick's arithmetic: model FLOPs of a round's local training,
 the least HBM bytes of a round's codec work, and the card's peaks.
 
-FLOPs count the matrix products of the forward pass (2 m n k each) at
-the configuration's widths and the traffic's tokens, times 3 for the
-forward and the backward, with no recompute: per token and layer the
-q, k, v, o and the three MLP projections, the attention scores and the
-weighted sum over the whole ``seq x seq`` square the masked softmax
-computes, and the head. The embedding lookup, norms, softmax and the
-optimizer are not counted.
+FLOPs are the configuration's reference's count of one local step
+(``train_flops_per_step``: forward and backward, no recompute) at the
+traffic's batch and sequence, for every step of every client.
 
-Codec bytes follow the message's shapes, each tensor read or written
-once: an encode reads the float32 tensor and writes codes and one fp32
-scale a block; a decode reads codes and scales and writes float32; the
-streaming int8 fold reads codes and scales and reads and writes the
-float32 accumulator.
+Codec bytes follow the message's shapes, the reference's leaves, each
+tensor read or written once: an encode reads the float32 tensor and
+writes codes and one fp32 scale a block; a decode reads codes and scales
+and writes float32; the streaming int8 fold reads codes and scales and
+reads and writes the float32 accumulator.
 """
 from __future__ import annotations
 
 import math
 from typing import Any
 
-from fedbench.reference import codec, decoder
+from fedbench import reference
+from fedbench.reference import codec
 
 #: published dense peaks of a card (NVIDIA data sheet, SXM, 700 W)
 PEAKS = {
@@ -30,13 +27,7 @@ PEAKS = {
 
 
 def train_flops_per_step(cfg: dict[str, Any], batch: int, seq: int) -> float:
-    d, f, v, L = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"], cfg["num_layers"]
-    hd = cfg["head_dim"]
-    qf, kvf = cfg["num_heads"] * hd, cfg["num_kv_heads"] * hd
-    tokens = batch * seq
-    per_token_layer = 2 * (d * qf + 2 * d * kvf + qf * d + 3 * d * f) + 2 * 2 * seq * qf
-    forward = tokens * (L * per_token_layer + 2 * d * v)
-    return 3.0 * forward
+    return reference.load(cfg).train_flops_per_step(cfg, batch, seq)
 
 
 def flops_per_round(cfg: dict[str, Any], traffic: dict[str, Any]) -> float:
@@ -56,7 +47,7 @@ def codec_bytes_per_round(cfg: dict[str, Any], traffic: dict[str, Any],
     t = traffic["spec"]
     fold8 = t["aggregator"] == "quantized-fedavg"
     total = 0
-    for shape, _ in decoder.param_specs(cfg).values():
+    for shape, _ in reference.load(cfg).param_specs(cfg).values():
         n = math.prod(shape)
         dc, ds = _wire_bytes(n, fmt_down)
         uc, us = _wire_bytes(n, fmt_up)

@@ -15,7 +15,6 @@ re-derives the first round and :mod:`fedbench.check` decides
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import os
 import subprocess
@@ -27,9 +26,8 @@ from typing import Any, Optional
 
 import torch
 
-from fedbench import check, counts, devtrace, hostmem
+from fedbench import check, counts, devtrace, hostmem, loader, reference
 from fedbench.capture import Capture
-from fedbench.reference import decoder
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -39,7 +37,11 @@ def log(msg: str) -> None:
 
 
 class Cell:
-    """A workload of ``BENCHMARK.json`` with its files, found by name."""
+    """A workload of ``BENCHMARK.json`` with its files, found by name
+    under ``root``: its configuration (the file the entry names) and the
+    plain reference that the configuration names, its traffic mix, its
+    limits, its configuration's CPU test sizes and its metric readers
+    under ``root / "fedbench"``."""
 
     def __init__(self, root: Path, workload: str) -> None:
         bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -49,10 +51,15 @@ class Cell:
         self.workload = work[workload]
         self.name = workload
         conf = {c["name"]: c for c in bench["configs"]}[self.workload["config"]]
-        here = Path(__file__).resolve().parent
-        self.config = json.loads((root / conf["file"]).read_text())
-        self.traffic = json.loads((here / "traffic" / f"{self.workload['traffic']}.json").read_text())
-        self.limits = json.loads((here / "limits" / f"{workload}.json").read_text())
+        files = root / "fedbench"
+        # ``root`` tells the reference's loader which tree to look in
+        self.config = {**json.loads((root / conf["file"]).read_text()), "root": str(root)}
+        self.reference = reference.load(self.config)
+        traffic = self.workload["traffic"]
+        self.traffic = json.loads((files / "traffic" / f"{traffic}.json").read_text())
+        self.limits = json.loads((files / "limits" / f"{workload}.json").read_text())
+        # the CPU tests' sizes: the program's smoke widths of the arch
+        self.smoke = json.loads((files / "smoke" / f"{conf['name']}.json").read_text())
         self.chips = int(self.workload["chips"])
 
         def mine(m: dict[str, Any]) -> bool:
@@ -60,16 +67,10 @@ class Cell:
 
         self.end_to_end = [m for m in bench["end_to_end"] if mine(m)]
         self.per_layer = [m for m in bench["per_layer"] if mine(m)]
-        self.metrics_dir = here / "metrics"
+        self.metrics_dir = files / "metrics"
 
     def reader(self, name: str) -> Any:
-        path = self.metrics_dir / f"{name}.py"
-        spec = importlib.util.spec_from_file_location(f"fedbench_metric_{name}", path)
-        if spec is None or spec.loader is None:
-            raise ImportError(f"no reader for metric {name!r} at {path}")
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return loader.load_file(self.metrics_dir / f"{name}.py", f"fedbench_metric_{name}").read
 
 
 def process_age_s() -> float:
@@ -101,20 +102,37 @@ def normal_seed(seed: int) -> int:
     return seed % (1 << 63)
 
 
+def model_overrides(cfg: dict[str, Any]) -> dict[str, Any]:
+    """The configuration's cut as the program takes it: each key that
+    ``reduced`` lists, with the file's value. The program applies
+    ``num_layers`` alone, so any other key raises ``ValueError``: a cut
+    the program cannot take fails, and never runs uncut."""
+    cut = {k: cfg[k] for k in cfg["reduced"]}
+    untaken = sorted(set(cut) - {"num_layers"})
+    if untaken:
+        raise ValueError(f"the cut of {cfg['name']!r} names {untaken}; the program takes "
+                         "no cut but num_layers")
+    return cut
+
+
 def job_spec(cell: Cell, cfg: dict[str, Any], seed: int, smoke: bool) -> dict[str, Any]:
     return {**cell.traffic["spec"], "arch": cfg["arch"], "smoke": smoke,
-            "num_layers": cfg["num_layers"], "seed": seed, "rounds": 1}
+            "num_layers": cfg["num_layers"], "model_overrides": model_overrides(cfg),
+            "seed": seed, "rounds": 1}
 
 
 def setup_round(cell: Cell, cfg: dict[str, Any], seed: int, device: str,
                 smoke: bool) -> tuple[Any, dict[str, Any], dict[str, Any]]:
     """Build the federation, run and capture its first round. Returns the
-    simulator, the round's global weights and the capture."""
+    simulator, the round's global weights and the capture. The round-0
+    weights are the reference's; the program checks them against the
+    names and shapes of the model it builds, so a cut that does not
+    reach the program fails here."""
     from repro_torch.fl.job import build_job
 
     t0 = time.perf_counter()
     job = build_job(job_spec(cell, cfg, seed, smoke), device=device,
-                    weights=decoder.make_weights(cfg, seed, device))
+                    weights=cell.reference.make_weights(cfg, seed, device))
     sim, start = job.sim, job.init_weights
     del job
     segs = check.segments(cfg, seed)
@@ -160,6 +178,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
         rss0 = sampler.reset()
         if on_cuda:
             torch.cuda.reset_peak_memory_stats()
+            blocks0 = torch.cuda.host_memory_stats().get("num_host_alloc", 0)
         if dtrace is not None:
             dtrace.open()
         setup_s = process_age_s()
@@ -176,6 +195,12 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     finally:
         sampler.close()
     log(f"window {window_s:.3f} s, {rounds} rounds ending at {[round(t, 3) for t in ends]}")
+    log(f"host: RSS {rss0} B at the window's start, {host_peak} B at its peak")
+    if on_cuda:     # page-locked host blocks, and how many the window made
+        held = torch.cuda.host_memory_stats()
+        log(f"page-locked host memory: {held.get('allocated_bytes.current', 0)} B in "
+            f"{held.get('num_host_alloc', 0)} blocks, {held.get('num_host_alloc', 0) - blocks0} "
+            "made in the window")
     meter_peak = sim.meter.peak
     del sim, glob
     gc.collect()
@@ -188,7 +213,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     if reading is None:
         e2e = {"round_s": window_s / rounds, "peak_device_gb": window_peak / 1e9,
-               "peak_host_gb": (host_peak - rss0) / 1e9, "setup_s": setup_s}
+               "peak_host_rss_gb": host_peak / 1e9, "setup_s": setup_s}
         for m in cell.end_to_end:
             result["metrics"][m["name"]] = {"value": e2e[m["name"]], "unit": units[m["name"]]}
     else:

@@ -1,7 +1,8 @@
 """Seconds a round spends allocating the receive buffers of items that
 span several chunks: the ``alloc_s`` args of the program's
-``wire.reassemble`` spans (a fresh, zero-filled ``bytearray`` an item),
-per round. None when no such span ran."""
+``wire.reassemble`` spans (an uninitialised byte tensor an item, from
+torch's caching host allocator, page-locked where the receiver's decoder
+is on CUDA), per round. None when no such span ran."""
 
 
 def read(r):

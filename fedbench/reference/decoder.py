@@ -51,6 +51,23 @@ def param_count(cfg: dict[str, Any]) -> int:
     return sum(math.prod(shape) for shape, _ in param_specs(cfg).values())
 
 
+def train_flops_per_step(cfg: dict[str, Any], batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: the matrix products of the
+    forward pass (2 m n k each) times 3 for the forward and the backward,
+    with no recompute. Per token and layer: the q, k, v, o and the three
+    MLP projections, the attention scores and the weighted sum over the
+    whole ``seq x seq`` square the masked softmax computes; and the head.
+    The embedding lookup, norms, softmax and the optimizer are not
+    counted."""
+    d, f, v, L = cfg["d_model"], cfg["d_ff"], cfg["vocab_size"], cfg["num_layers"]
+    hd = cfg["head_dim"]
+    qf, kvf = cfg["num_heads"] * hd, cfg["num_kv_heads"] * hd
+    tokens = batch * seq
+    per_token_layer = 2 * (d * qf + 2 * d * kvf + qf * d + 3 * d * f) + 2 * 2 * seq * qf
+    forward = tokens * (L * per_token_layer + 2 * d * v)
+    return 3.0 * forward
+
+
 def make_weights(cfg: dict[str, Any], seed: int, device: Any) -> dict[str, torch.Tensor]:
     """The round-0 global weights from ``seed``: one ``randn`` draw on
     ``device`` for every normal-initialised parameter (in sorted name

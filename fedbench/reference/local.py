@@ -21,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from fedbench.reference import decoder
+from fedbench import reference
 
 ADAMW = {"b1": 0.9, "b2": 0.95, "eps": 1e-8, "weight_decay": 0.1, "max_grad_norm": 1.0}
 
@@ -85,10 +85,11 @@ def train_client(start: dict[str, torch.Tensor], cfg: dict[str, Any],
     losses: list[float] = []
     first_grad: dict[str, float] = {}
     steps = traffic["local_steps"]
+    model = reference.load(cfg)
     for step in range(steps):
         toks = tokens_at(cfg["vocab_size"], traffic["seq"], seed, mode[0], mode[1],
                          traffic["batch"], step)[:rows]   # round 0: key = step
-        loss = decoder.loss(params, torch.from_numpy(toks).to(device), cfg, precision)
+        loss = model.loss(params, torch.from_numpy(toks).to(device), cfg, precision)
         grads = torch.autograd.grad(loss, leaves)
         losses.append(float(loss.detach()))
         if step == 0:

@@ -1,9 +1,11 @@
 """Small sizes of the benchmark's cells for the CPU tests: each
-configuration at the port's smoke widths (its ``SMOKE_OVERRIDES``), and
-each traffic mix with fewer local steps and shorter rows."""
+configuration at the port's smoke widths of its arch (the sizes in
+``fedbench/smoke/<configuration>.json``), and each traffic mix with
+fewer local steps and shorter rows."""
 from __future__ import annotations
 
 import copy
+import json
 from pathlib import Path
 from typing import Any
 
@@ -11,19 +13,15 @@ from fedbench import harness
 from fedbench.reference import local
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ("stablelm-b8-stream", "granite6-nf4-train")
-SMOKE = {
-    "stablelm-b8-stream": dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=4,
-                               d_ff=512, vocab_size=512, head_dim=64),
-    "granite6-nf4-train": dict(num_layers=2, d_model=256, num_heads=4, num_kv_heads=2,
-                               d_ff=512, vocab_size=512, head_dim=64),
-}
+#: every workload of ``BENCHMARK.json``, in the file's order
+CELLS = tuple(w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"])
 
 
-def small(workload: str, local_steps: int = 2, seq: int = 32) -> tuple[dict, dict]:
+def small(workload: str, local_steps: int = 2, seq: int = 32,
+          root: Path = ROOT) -> tuple[dict, dict]:
     """The cell's configuration at smoke widths and its traffic cut down."""
-    cell = harness.Cell(ROOT, workload)
-    cfg = {**cell.config, **SMOKE[workload]}
+    cell = harness.Cell(root, workload)
+    cfg = {**cell.config, **cell.smoke}
     traffic = copy.deepcopy(cell.traffic)
     traffic["spec"].update(local_steps=local_steps, seq=seq)
     return cfg, traffic
@@ -37,7 +35,8 @@ def distinct_clients_seed(traffic: dict[str, Any], start: int = 1) -> int:
     return seed
 
 
-def run(workload: str, seed: int, trace: bool = False, **sizes: Any) -> dict:
-    cfg, traffic = small(workload, **sizes)
-    return harness.run_cell(ROOT, workload, seed, 0.0, trace, device="cpu", config=cfg,
+def run(workload: str, seed: int, trace: bool = False, root: Path = ROOT,
+        **sizes: Any) -> dict:
+    cfg, traffic = small(workload, root=root, **sizes)
+    return harness.run_cell(root, workload, seed, 0.0, trace, device="cpu", config=cfg,
                             traffic=traffic, smoke=True)

@@ -1,6 +1,7 @@
-"""The harness finds every configuration, traffic mix, limit file and
-metric reader by name; the yardstick's counts against hand-worked
-values; the trace reader and the host sampler on made-up inputs."""
+"""The harness finds every configuration with its reference, traffic
+mix, limit file, CPU test sizes and metric reader by name; the
+yardstick's counts against hand-worked values; the trace reader and the
+host sampler on made-up inputs."""
 from __future__ import annotations
 
 import json
@@ -10,23 +11,25 @@ import numpy as np
 import pytest
 
 from fedbench import check, counts, devtrace, harness, hostmem
-from fedbench.reference import decoder
-from fedbench.tests.smallcell import CELLS, ROOT
+from fedbench.tests.smallcell import ROOT
 
 
 def test_benchmark_cells_found_by_name():
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    assert [w["name"] for w in bench["workloads"]] == list(CELLS)
+    confs = {c["name"]: c for c in bench["configs"]}
     for w in bench["workloads"]:
         cell = harness.Cell(ROOT, w["name"])
         assert cell.config["name"] == w["config"]
+        assert cell.config["reduced"] == confs[w["config"]]["reduced"]
         assert cell.traffic["name"] == w["traffic"]
         assert set(cell.limits) == set(check.NAMES)
-        assert decoder.param_count(cell.config) == cell.config["params"]
+        assert cell.smoke and set(cell.smoke) <= set(cell.config)
+        assert cell.reference.__file__ == str(ROOT / cell.config["reference"])
+        assert cell.reference.param_count(cell.config) == cell.config["params"]
         for m in cell.per_layer:
             assert callable(cell.reader(m["name"]))
         assert {m["name"] for m in cell.end_to_end} == {
-            "round_s", "peak_device_gb", "peak_host_gb", "setup_s"}
+            "round_s", "peak_device_gb", "peak_host_rss_gb", "setup_s"}
 
 
 def test_unknown_workload_is_refused():

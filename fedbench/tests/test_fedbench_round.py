@@ -25,7 +25,8 @@ def test_port_round_matches_reference(workload):
     assert result["correct"], result["checks"]
     assert list(result)[-1] == "checks"
     assert set(result["checks"]) == set(check.NAMES)
-    assert set(result["metrics"]) == {"round_s", "peak_device_gb", "peak_host_gb", "setup_s"}
+    assert set(result["metrics"]) == {"round_s", "peak_device_gb", "peak_host_rss_gb",
+                                      "setup_s"}
     assert result["attempted"] == 2 and result["failed"] == 0
     assert result["checks"]["downlink_mismatch"]["value"] == 0
     assert result["checks"]["uplink_mismatch"]["value"] == 0
